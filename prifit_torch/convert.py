@@ -1,0 +1,103 @@
+"""JAX package variables -> the port's state_dict.
+
+The port's copy of the map in ``prifit_tpu/train/torch_port.py``
+(``_entries`` and ``export_msg_state_dict``, without the ``extra_layers``
+tower).  Layout facts it encodes:
+
+- an MSG grouped first layer holds ``w_feat [d_in, F]``, ``w_xyz [3, F]``
+  and ``b_feat`` (``bias`` when ``d_in == 0``); the reference conv weight
+  is ``[F, d_in + 3, 1, 1]`` with the features FIRST;
+- other layers are ``[in, out]`` kernels that transpose to 1x1 conv
+  weights ``[out, in, 1(, 1)]`` (Conv2d in the SA layers, Conv1d
+  elsewhere);
+- batch norms map ``scale``/``bias`` params and ``mean``/``var``
+  batch_stats to ``weight``/``bias``/``running_mean``/``running_var``.
+"""
+
+import numpy as np
+import torch
+
+SA_CFG = (
+    ("sa1", 3, [[32, 32, 64], [64, 64, 128], [64, 96, 128]]),
+    ("sa2", 320, [[128, 128, 256], [128, 196, 256]]),
+)
+FP_NAMES = ("fp3", "fp2", "fp1")
+
+
+def _entries():
+    """(torch conv prefix, torch bn prefix, kind, flax path, aux) rows."""
+    rows = []
+    for name, d_in, mlps in SA_CFG:
+        for i, mlp in enumerate(mlps):
+            rows.append((f"{name}.conv_blocks.{i}.0",
+                         f"{name}.bn_blocks.{i}.0",
+                         "gfl", (name, f"GroupedFirstLayer_{i}"), d_in))
+            for j in range(1, len(mlp)):
+                rows.append((f"{name}.conv_blocks.{i}.{j}",
+                             f"{name}.bn_blocks.{i}.{j}",
+                             "mlp", (name, f"PointMLP_{i}"), j - 1))
+    for j in range(3):
+        rows.append((f"sa3.mlp_convs.{j}", f"sa3.mlp_bns.{j}",
+                     "mlp", ("sa3", "PointMLP_0"), j))
+    for name in FP_NAMES:
+        for j in range(2):
+            rows.append((f"{name}.mlp_convs.{j}", f"{name}.mlp_bns.{j}",
+                         "mlp", (name, "PointMLP_0"), j))
+    for nm in ("conv1", "conv2", "extra_conv_emb"):
+        rows.append((nm, None, "dense", (nm,), None))
+    rows.append(("bn1", None, "bn", ("bn1",), None))
+    return rows
+
+
+def _get(tree, path):
+    for p in path:
+        tree = tree[p]
+    return np.asarray(tree, np.float32)
+
+
+def _conv(w2, conv2d: bool):
+    """``[in, out]`` kernel -> conv weight ``[out, in, 1(, 1)]``."""
+    w = np.ascontiguousarray(w2.T)[:, :, None]
+    return w[..., None] if conv2d else w
+
+
+def state_dict_from_jax(variables) -> dict:
+    """``{"params": ..., "batch_stats": ...}`` nested dicts of arrays of
+    the JAX ``pointnet2_part_seg_msg.get_model`` -> the port's state_dict
+    (torch f32 tensors)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+
+    def bn(prefix, path, scale, bias, mean, var):
+        sd[f"{prefix}.weight"] = _get(params, path + (scale,))
+        sd[f"{prefix}.bias"] = _get(params, path + (bias,))
+        sd[f"{prefix}.running_mean"] = _get(stats, path + (mean,))
+        sd[f"{prefix}.running_var"] = _get(stats, path + (var,))
+
+    for conv, bnp, kind, path, aux in _entries():
+        if kind == "gfl":
+            if aux:
+                w2 = np.concatenate([_get(params, path + ("w_feat",)),
+                                     _get(params, path + ("w_xyz",))], 0)
+                b = _get(params, path + ("b_feat",))
+            else:
+                w2 = _get(params, path + ("w_xyz",))
+                b = _get(params, path + ("bias",))
+            sd[f"{conv}.weight"] = _conv(w2, True)
+            sd[f"{conv}.bias"] = b
+            bn(bnp, path, "bn_scale", "bn_bias", "bn_mean", "bn_var")
+        elif kind == "mlp":
+            j = aux
+            sd[f"{conv}.weight"] = _conv(
+                _get(params, path + (f"w{j}",)),
+                conv.startswith(("sa1.", "sa2.", "sa3.")))
+            sd[f"{conv}.bias"] = _get(params, path + (f"b{j}",))
+            bn(bnp, path, f"bn{j}_scale", f"bn{j}_bias", f"bn{j}_mean",
+               f"bn{j}_var")
+        elif kind == "dense":
+            sd[f"{conv}.weight"] = _conv(_get(params, path + ("kernel",)),
+                                         False)
+            sd[f"{conv}.bias"] = _get(params, path + ("bias",))
+        else:
+            bn(conv, path, "scale", "bias", "mean", "var")
+    return {k: torch.tensor(v) for k, v in sd.items()}

@@ -1,0 +1,66 @@
+"""K-th nearest chordal distance by counting bisection: CUDA kernel
+(``csrc/bandwidth.cu``) and plain PyTorch version."""
+
+import torch
+
+from prifit_torch.kernels.build import I32, P, Kernel, check_cuda, \
+    stream_handle
+
+KERNEL = Kernel(
+    "bandwidth", "prifit_tpu/ops/pallas/bandwidth.py:69",
+    {"kth_nn_distance": (P, P, I32, I32, I32, I32, I32, I32, I32, P)})
+
+D = 128        # embedding width the kernel takes
+ROW_TILE = 64  # N must be a multiple of this
+MAX_RANKS = 4
+ITERS = 24
+
+
+def chordal_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``2 - 2 <a, b>`` for unit rows (squared chordal distance),
+    batched: ``[..., N, D] x [..., M, D] -> [..., N, M]``."""
+    return 2.0 - 2.0 * torch.matmul(a, b.transpose(-1, -2))
+
+
+def kth_smallest_bisect(dist: torch.Tensor, ks, iters: int = ITERS
+                        ) -> torch.Tensor:
+    """``clustering/mean_shift.py::_kth_smallest_bisect`` of the JAX
+    package, batched: ``dist [B, N, M]`` (values in [0, 4]) ->
+    ``[B, C, N]``, keeping ``count(d <= mid) >= K`` and returning ``hi``."""
+    B, N, _ = dist.shape
+    kt = torch.tensor(list(ks), device=dist.device)[None, :, None]
+    lo = torch.zeros((B, len(ks), N), dtype=torch.float32,
+                     device=dist.device)
+    hi = torch.full_like(lo, 4.0)
+    for _ in range(iters):
+        mid = (lo + hi) / 2.0
+        cnt = (dist[:, None] <= mid[..., None]).sum(-1)
+        ge = cnt >= kt
+        lo, hi = torch.where(ge, lo, mid), torch.where(ge, mid, hi)
+    return hi
+
+
+def kth_nn_plain(X: torch.Tensor, ks) -> torch.Tensor:
+    return kth_smallest_bisect(chordal_sqdist(X, X), ks)
+
+
+def kth_nn_distance(X: torch.Tensor, ks) -> torch.Tensor:
+    """``X [B, N, D]`` unit rows, ``ks`` ranks -> ``[B, C, N]`` K-th
+    smallest squared chordal distance of each row, for each rank.
+
+    Launches the kernel for a CUDA tensor; a CPU tensor takes the plain
+    version."""
+    ks = [int(k) for k in ks]
+    if X.device.type == "cpu":
+        return kth_nn_plain(X, ks)
+    check_cuda("bandwidth X", X, torch.float32, 3)
+    B, N, d = X.shape
+    if d != D or N % ROW_TILE or not 1 <= len(ks) <= MAX_RANKS:
+        raise ValueError(f"bandwidth: unsupported shape {tuple(X.shape)} "
+                         f"with {len(ks)} ranks")
+    out = torch.empty((B, len(ks), N), dtype=torch.float32,
+                      device=X.device)
+    kk = ks + [0] * (MAX_RANKS - len(ks))
+    KERNEL.launch("kth_nn_distance", X.data_ptr(), out.data_ptr(), B, N,
+                  len(ks), *kk, stream_handle(X))
+    return out

@@ -1,0 +1,152 @@
+"""PointNet++ MSG part segmentation, the primary PRIFIT model.
+
+Port of ``prifit_tpu/models/pointnet2_part_seg_msg.py::get_model`` without
+the ``extra_layers`` tower and the AtlasNet reconstruction (not ported
+yet): SA-MSG(512) -> SA-MSG(128) -> SA-all(1024) -> FP3/FP2/FP1 (16-d
+one-hot category + xyz skip) -> 128-d feat head -> dropout -> part
+log-probabilities, with the convex self-sup loss computed inside the
+forward.  Parameters and buffers carry the reference state_dict names, so
+:func:`prifit_torch.convert.state_dict_from_jax` output loads with
+``strict=True``.
+
+Mode follows ``module.train()`` / ``module.eval()``.  Randomness (the
+training FPS start and dropout) comes only from an explicit
+``torch.Generator``; without one, FPS starts at index 0.
+"""
+
+import torch
+from torch import nn
+
+from prifit_torch.geometry.convex_loss import convex_loss
+from prifit_torch.models.common import (
+    SegOutput,
+    encoder_dtypes,
+    maybe_quant,
+    stage_cfg,
+)
+from prifit_torch.nn.norm import BatchNorm
+from prifit_torch.nn.pointnet2 import (
+    FeaturePropagation,
+    SetAbstractionAll,
+    SetAbstractionMsg,
+    conv_weight,
+    dense,
+)
+from prifit_torch.utils.device import resolve_device
+
+
+class get_model(nn.Module):
+    def __init__(self, num_parts: int, normal_channel: bool = False,
+                 dropout_rate: float = 0.5, compute_dtype: str = "auto",
+                 fused_ball_query: bool = True, stage_dtypes: str = "",
+                 device=None):
+        """``device``: where the model's parameters live; CUDA unless the
+        caller names another (raises without a GPU)."""
+        super().__init__()
+        self.num_parts = num_parts
+        self.dropout_rate = dropout_rate
+        extra = 3 if normal_channel else 0
+        dt_sa, dt_fp = encoder_dtypes(compute_dtype)
+        cfg = {s: stage_cfg(stage_dtypes, s, dt_sa if s.startswith("sa")
+                            else dt_fp)
+               for s in ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")}
+        self.quant = {s: q for s, (_, q) in cfg.items()}
+        self.sa1 = SetAbstractionMsg(
+            512, [0.1, 0.2, 0.4], [32, 64, 128], 3 + extra,
+            [[32, 32, 64], [64, 64, 128], [64, 96, 128]],
+            fused=fused_ball_query, dtype=cfg["sa1"][0])
+        self.sa2 = SetAbstractionMsg(
+            128, [0.4, 0.8], [64, 128], 128 + 128 + 64,
+            [[128, 128, 256], [128, 196, 256]],
+            fused=fused_ball_query, dtype=cfg["sa2"][0])
+        self.sa3 = SetAbstractionAll(256 + 256 + 3, [256, 512, 1024],
+                                     dtype=cfg["sa3"][0])
+        self.fp3 = FeaturePropagation(1536, [256, 256], dtype=cfg["fp3"][0])
+        self.fp2 = FeaturePropagation(576, [256, 128], dtype=cfg["fp2"][0])
+        self.fp1 = FeaturePropagation(150 + extra, [128, 128],
+                                      dtype=cfg["fp1"][0])
+        self.conv1 = nn.Conv1d(128, 128, 1)
+        self.bn1 = BatchNorm(128)
+        self.conv2 = nn.Conv1d(128, num_parts, 1)
+        self.extra_conv_emb = nn.Conv1d(128, 128, 1)
+        # entropy-weight decay beta *= 0.99 until 0.001 (the JAX
+        # package's ``selfsup_state`` collection); not part of the
+        # state_dict
+        self.register_buffer("beta", torch.ones(()), persistent=False)
+        self.to(resolve_device(device))
+
+    def _head(self, x, conv):
+        return dense(x, conv_weight(conv), conv.bias)
+
+    def forward(self, xyz: torch.Tensor, cls_label: torch.Tensor,
+                chamfer_points: torch.Tensor | None = None, *,
+                bn_momentum: float = 0.1,
+                include_convex_loss: bool = False,
+                quantile: float = 0.01, msc_iterations: int = 5,
+                max_num_clusters: int = 25, n_per_prim: int = 400,
+                num_bandwidth_candidates: int = 2, alpha: float = 1.0,
+                evaluation: bool = False, embed: bool = False,
+                generator: torch.Generator | None = None) -> SegOutput:
+        """``xyz [B, N, 3(+3)]`` channel-last, ``cls_label [B, 16]``
+        one-hot."""
+        B, N, _ = xyz.shape
+        q = self.quant
+        l0_points = xyz
+        l0_xyz = xyz[..., :3]
+
+        l1_xyz, l1_points = self.sa1(l0_xyz, l0_points, bn_momentum,
+                                     generator)
+        l1_points = maybe_quant(l1_points, q["sa1"])
+        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, bn_momentum,
+                                     generator)
+        l2_points = maybe_quant(l2_points, q["sa2"])
+        l3_xyz, l3_points = self.sa3(l2_xyz, l2_points, bn_momentum)
+        l3_points = maybe_quant(l3_points, q["sa3"])
+
+        l2_points = maybe_quant(self.fp3(l2_xyz, l3_xyz, l2_points,
+                                         l3_points, bn_momentum), q["fp3"])
+        l1_points = maybe_quant(self.fp2(l1_xyz, l2_xyz, l1_points,
+                                         l2_points, bn_momentum), q["fp2"])
+        cls_onehot = cls_label[:, None, :].expand(B, N, cls_label.shape[-1])
+        skip = torch.cat([cls_onehot.float(), l0_xyz.float(),
+                          l0_points.float()], dim=-1)
+        l0_points = maybe_quant(self.fp1(l0_xyz, l1_xyz, skip, l1_points,
+                                         bn_momentum), q["fp1"])
+
+        # everything from the head on runs f32
+        l0_points = l0_points.float()
+        feat = torch.relu(self.bn1(self._head(l0_points, self.conv1),
+                                   bn_momentum))
+        zero = torch.zeros((), dtype=torch.float32, device=xyz.device)
+        total_loss, chamfer, convex_out, feat_embed = zero, zero, None, None
+        if embed and not include_convex_loss:
+            feat_embed = self._head(feat, self.extra_conv_emb)
+        if include_convex_loss:
+            beta = self.beta
+            new_beta = torch.where(beta > 0.001, beta * 0.99, beta)
+            beta_eff = torch.where(beta > 0.001, new_beta,
+                                   torch.zeros_like(beta))
+            with torch.no_grad():
+                self.beta.copy_(new_beta)
+            feat_embed = self._head(feat, self.extra_conv_emb)
+            convex_out = convex_loss(
+                l0_xyz, chamfer_points, feat_embed, quantile=quantile,
+                iterations=msc_iterations,
+                max_num_clusters=max_num_clusters, n_per_prim=n_per_prim,
+                num_bandwidth_candidates=num_bandwidth_candidates,
+                alpha=alpha, beta=beta_eff, evaluation=evaluation)
+            total_loss, chamfer = convex_out.total, convex_out.chamfer
+
+        x = feat
+        if self.training and self.dropout_rate > 0:
+            if generator is None:
+                raise ValueError("training with dropout needs a generator")
+            keep = 1.0 - self.dropout_rate
+            mask = torch.rand(x.shape, generator=generator,
+                              device=generator.device) < keep
+            x = torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+        x = torch.log_softmax(self._head(x, self.conv2), dim=-1)
+        hidden = tuple(h.float() for h in (l1_points, l2_points, l3_points))
+        return SegOutput(seg_logits=x, hidden=hidden, feat=feat,
+                         total_loss=total_loss, chamfer_loss=chamfer,
+                         convex=convex_out, embedding=feat_embed)

@@ -1,0 +1,268 @@
+"""PointNet++ building blocks, channel-last.
+
+Port of ``prifit_tpu/nn/pointnet2.py`` (eval forward and the explicit
+train-mode chain).  The modules hold the reference's 1x1 convolutions and
+batch norms under the reference state_dict names
+(``conv_blocks.{i}.{j}``, ``bn_blocks.{i}.{j}``, ``mlp_convs.{j}``,
+``mlp_bns.{j}``), and apply each convolution as a dense layer over the
+last axis.  A grouped first layer is the first convolution of each MSG
+block; its weight is ``[F, d_in + 3]`` with the features FIRST, split at
+run time into ``w_feat`` and ``w_xyz``.
+
+Compute dtype (``dtype`` below): None runs f32; ``torch.bfloat16`` casts
+each dense layer's input and parameters to bf16; ``FQ`` rounds matmul
+inputs/outputs and BN outputs to bf16 straight-through; ``MX``/``MXSR``
+run as bf16 in eval mode.  Their training region (``nn/mixed.py`` in the
+JAX package) is not ported yet, so training in those modes raises.
+"""
+
+import torch
+from torch import nn
+
+from prifit_torch.nn.norm import BatchNorm
+from prifit_torch.ops.sampling import (
+    ball_query_nearest_shared,
+    farthest_point_sample,
+    gather_neighbors,
+    index_points,
+    query_ball_point,
+    sample_and_group_all,
+    three_nn_interpolate,
+)
+
+FQ = "fq"
+MX = "mx"
+MXSR = "mxsr"
+
+
+def stq(x: torch.Tensor) -> torch.Tensor:
+    """bf16-round values, straight-through (identity) gradients."""
+    x32 = x.float()
+    return x32 + (x32.bfloat16().float() - x32).detach()
+
+
+def cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Apply a compute-dtype spec: a real dtype casts, ``FQ`` rounds
+    straight-through, None passes through."""
+    if dtype is None:
+        return x
+    if dtype == FQ:
+        return stq(x)
+    return x.to(dtype)
+
+
+def eff(dtype):
+    """``MX``/``MXSR`` are bf16 outside their training region."""
+    return torch.bfloat16 if dtype in (MX, MXSR) else dtype
+
+
+def run_dtype(dtype, train: bool):
+    """Array dtype of the explicit chain (``_run_dtype`` in the JAX
+    package, single replica)."""
+    if dtype in (MX, MXSR) and train:
+        raise NotImplementedError(
+            f"training with compute dtype {dtype!r} needs the mixed "
+            "precision region, which the port does not have yet")
+    return eff(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+          dtype=None) -> torch.Tensor:
+    """``x @ w.T (+ b)`` for a torch weight ``w [out, in]``.  With a
+    compute dtype, x, w and b are cast first (``FQ``: rounded
+    straight-through, output too); without one, mixed inputs promote."""
+    if dtype == FQ:
+        x, w = stq(x), stq(w)
+        b = None if b is None else stq(b)
+    elif dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+        b = None if b is None else b.to(dtype)
+    else:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = torch.matmul(x, w.t())
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return stq(y) if dtype == FQ else y
+
+
+def conv_weight(conv: nn.Module) -> torch.Tensor:
+    """A 1x1 Conv1d/Conv2d weight as ``[out, in]``."""
+    return conv.weight.reshape(conv.weight.shape[0], conv.weight.shape[1])
+
+
+def point_mlp(convs, bns, x: torch.Tensor, dtype, train: bool,
+              bn_momentum: float) -> torch.Tensor:
+    """Shared per-point MLP: [dense -> BN -> relu] per layer (the explicit
+    chain of ``PointMLP`` in the JAX package)."""
+    dt = run_dtype(dtype, train)
+    for conv, bn in zip(convs, bns):
+        x = dense(x, conv_weight(conv), conv.bias,
+                  dt if dtype != FQ else dtype)
+        x = bn(x, bn_momentum)
+        if dtype == FQ:
+            x = stq(x)
+        x = torch.relu(x)
+    return x
+
+
+def gfl_pre_affine(conv, d_in: int, xyz, points):
+    """Per-point affine part ``W_f feat + W_x xyz + b``, ``[B, N, F]``."""
+    w = conv_weight(conv)
+    pre = dense(xyz, w[:, d_in:])
+    if d_in:
+        return pre + dense(points, w[:, :d_in], conv.bias)
+    return pre + conv.bias
+
+
+def gfl_pre_tensor(conv, d_in: int, xyz, points, new_xyz, idx):
+    """Pre-BN grouped activation ``[B, S, K, F]`` of the grouped first
+    layer: one exact gather per scale of whichever side is narrower (raw
+    inputs vs the ``pre_affine`` projection), minus the projected center
+    (``GroupedFirstLayer.pre_tensor`` in the JAX package)."""
+    w = conv_weight(conv)
+    w_xyz = w[:, d_in:]
+    if 3 + d_in <= w.shape[0]:
+        grouped = dense(gather_neighbors(xyz, idx), w_xyz)
+        if d_in:
+            grouped = grouped + dense(gather_neighbors(points, idx),
+                                      w[:, :d_in], conv.bias)
+        else:
+            grouped = grouped + conv.bias
+    else:
+        grouped = gather_neighbors(gfl_pre_affine(conv, d_in, xyz, points),
+                                   idx)
+    return grouped - dense(new_xyz, w_xyz)[:, :, None, :]
+
+
+def grouped_first_layer(conv, bn, d_in: int, xyz, points, new_xyz, idx,
+                        dtype, train: bool, bn_momentum: float):
+    """``[B, S, K, F]`` post-BN, post-relu output of the grouped first
+    layer, cast to the chain's dtype."""
+    grouped = gfl_pre_tensor(conv, d_in, xyz, points, new_xyz, idx)
+    grouped = cast(grouped, run_dtype(dtype, train))
+    grouped = bn(grouped, bn_momentum)
+    if dtype == FQ:
+        grouped = stq(grouped)
+    return torch.relu(grouped)
+
+
+def fps_start(xyz: torch.Tensor, train: bool,
+              generator: torch.Generator | None) -> torch.Tensor:
+    """FPS start indices: random (from ``generator``) when training with
+    a generator, the reference's random start; index 0 otherwise."""
+    B, N, _ = xyz.shape
+    if train and generator is not None:
+        start = torch.randint(0, N, (B,), generator=generator,
+                              device=generator.device)
+        return start.to(xyz.device)
+    return torch.zeros(B, dtype=torch.int64, device=xyz.device)
+
+
+class SetAbstractionMsg(nn.Module):
+    """Multi-scale grouping SA layer: one FPS, then per radius a ball
+    query, grouped first layer, MLP chain and max over the neighbours;
+    channels concatenated.  Grouped features are ``[feats, xyz - c]``."""
+
+    def __init__(self, npoint: int, radius_list, nsample_list,
+                 in_channel: int, mlp_list, fused: bool = True,
+                 dtype=None):
+        super().__init__()
+        self.npoint = npoint
+        self.radius_list = list(radius_list)
+        self.nsample_list = list(nsample_list)
+        self.d_in = in_channel
+        self.fused = fused
+        self.dtype = dtype
+        self.conv_blocks = nn.ModuleList()
+        self.bn_blocks = nn.ModuleList()
+        for mlp in mlp_list:
+            last = in_channel + 3
+            convs, bns = nn.ModuleList(), nn.ModuleList()
+            for out in mlp:
+                convs.append(nn.Conv2d(last, out, 1))
+                bns.append(BatchNorm(out))
+                last = out
+            self.conv_blocks.append(convs)
+            self.bn_blocks.append(bns)
+
+    def forward(self, xyz, points, bn_momentum: float = 0.1,
+                generator: torch.Generator | None = None):
+        """xyz ``[B, N, 3]``, points ``[B, N, d_in]`` -> (new_xyz
+        ``[B, npoint, 3]``, new_points ``[B, npoint, sum of last
+        widths]``)."""
+        train = self.training
+        fps_idx = farthest_point_sample(xyz, self.npoint,
+                                        fps_start(xyz, train, generator))
+        new_xyz = index_points(xyz, fps_idx)
+        if self.fused:
+            idx_list = ball_query_nearest_shared(
+                self.radius_list, self.nsample_list, xyz, new_xyz)
+        else:
+            idx_list = [query_ball_point(r, k, xyz, new_xyz)
+                        for r, k in zip(self.radius_list,
+                                        self.nsample_list)]
+        outs = []
+        for idx, convs, bns in zip(idx_list, self.conv_blocks,
+                                   self.bn_blocks):
+            h = grouped_first_layer(convs[0], bns[0], self.d_in, xyz,
+                                    points, new_xyz, idx, self.dtype,
+                                    train, bn_momentum)
+            h = point_mlp(convs[1:], bns[1:], h, self.dtype, train,
+                          bn_momentum)
+            outs.append(torch.amax(h, dim=-2))
+        return new_xyz, torch.cat(outs, dim=-1)
+
+
+class SetAbstractionAll(nn.Module):
+    """Group-all SA layer (``SetAbstraction(group_all=True)`` in the JAX
+    package): one global group ``[xyz, points]``, MLP chain, max over
+    points."""
+
+    def __init__(self, in_channel: int, mlp, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.mlp_convs = nn.ModuleList()
+        self.mlp_bns = nn.ModuleList()
+        last = in_channel
+        for out in mlp:
+            self.mlp_convs.append(nn.Conv2d(last, out, 1))
+            self.mlp_bns.append(BatchNorm(out))
+            last = out
+
+    def forward(self, xyz, points, bn_momentum: float = 0.1):
+        new_xyz, grouped = sample_and_group_all(xyz, points)
+        out = point_mlp(self.mlp_convs, self.mlp_bns, grouped, self.dtype,
+                        self.training, bn_momentum)
+        return new_xyz, torch.amax(out, dim=2)
+
+
+class FeaturePropagation(nn.Module):
+    """3-NN inverse-distance upsampling + skip concat + MLP chain."""
+
+    def __init__(self, in_channel: int, mlp, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.mlp_convs = nn.ModuleList()
+        self.mlp_bns = nn.ModuleList()
+        last = in_channel
+        for out in mlp:
+            self.mlp_convs.append(nn.Conv1d(last, out, 1))
+            self.mlp_bns.append(BatchNorm(out))
+            last = out
+
+    def forward(self, xyz1, xyz2, points1, points2,
+                bn_momentum: float = 0.1):
+        """xyz1 ``[B, N, 3]`` dense, xyz2 ``[B, S, 3]`` coarse, points1
+        ``[B, N, D1]`` skip or None, points2 ``[B, S, D2]``."""
+        interpolated = three_nn_interpolate(xyz1, xyz2, points2)
+        if self.dtype == FQ:
+            interpolated = stq(interpolated)
+        if points1 is not None:
+            x = torch.cat([points1, interpolated.to(points1.dtype)], dim=-1)
+        else:
+            x = interpolated
+        if len(self.mlp_convs):
+            x = point_mlp(self.mlp_convs, self.mlp_bns, x, self.dtype,
+                          self.training, bn_momentum)
+        return x

@@ -1,0 +1,95 @@
+"""The port stands alone: it imports without JAX, names nothing of JAX or
+of the JAX package, and its entry points refuse to run on the CPU unless
+asked."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import prifit_torch.entry
+from prifit_torch.kernels.bandwidth import kth_nn_distance
+from prifit_torch.kernels.fps import farthest_point_sample
+from prifit_torch.kernels.gather import gather_rows
+from prifit_torch.kernels.mean_shift import mean_shift_step
+from prifit_torch.kernels.nms import nms_passes
+from prifit_torch.models.pointnet2_part_seg_msg import get_model
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "prifit_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['prifit_tpu'] = None\n"
+        "import prifit_torch\n"
+        "for m in pkgutil.walk_packages(prifit_torch.__path__, "
+        "'prifit_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import prifit_torch.entry, prifit_torch.convert\n"
+        "assert not [k for k in sys.modules if k.startswith('jax')"
+        " and sys.modules[k] is not None]\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "prifit_tpu"), (
+                f"{path.name} imports {name}")
+
+
+def test_entry_points_need_a_device_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prifit_torch.entry.flagship(2, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prifit_torch.entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(num_parts=50)
+    get_model(num_parts=50, device="cpu")
+
+
+def test_kernel_wrappers_never_fall_back():
+    """A tensor that is neither on the CPU nor on a CUDA device is
+    refused before any launch: only CPU tensors take the plain version."""
+    meta = dict(device="meta")
+    x = torch.empty(2, 256, 3, **meta)
+    X = torch.empty(2, 256, 128, **meta)
+    bw = torch.empty(2, **meta)
+    calls = [
+        lambda: farthest_point_sample(x, 16, torch.zeros(2, **meta)),
+        lambda: gather_rows(x, torch.zeros(2, 5, dtype=torch.long, **meta)),
+        lambda: kth_nn_distance(X, [3]),
+        lambda: mean_shift_step(X, X, bw),
+        lambda: nms_passes(X, bw),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_small_entry_runs_on_cpu_when_asked():
+    fn, args = prifit_torch.entry.entry(device="cpu")
+    logits, loss = fn(*args)
+    assert logits.shape == (4, 512, 50)
+    assert torch.isfinite(logits).all() and torch.isfinite(loss)
