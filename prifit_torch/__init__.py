@@ -6,7 +6,8 @@ hand-written CUDA built with nvcc at first use; on CPU tensors every op
 runs its plain PyTorch version.
 """
 
-from prifit_torch import clustering, geometry, kernels, models, nn, ops, utils
+from prifit_torch import clustering, geometry, kernels, models, nn, ops, \
+    train, utils
 
 __all__ = ["clustering", "geometry", "kernels", "models", "nn", "ops",
-           "utils"]
+           "train", "utils"]

@@ -10,9 +10,12 @@ over shapes ``[B, ...]`` instead of ``vmap``:
                members -> distinct representatives  (NMS kernels)
   membership = column-normalized von-Mises kernel
 
-The three kernels run for CUDA tensors, their plain versions for CPU
-tensors (:mod:`prifit_torch.kernels`).  Each of the four stages is a
-profiler range of its own name (read by :mod:`prifit_torch.profile_forward`).
+The kernels run for CUDA tensors, their plain versions for CPU tensors
+(:mod:`prifit_torch.kernels`).  Gradients flow to the embeddings through
+every mean-shift step (its backward kernel), the centers and the
+membership; the bandwidth and NMS take none, as in the JAX package.  Each
+of the four stages is a profiler range of its own name (read by
+:mod:`prifit_torch.profile_forward`).
 """
 
 from typing import NamedTuple
@@ -54,7 +57,8 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth: torch.Tensor,
                           iterations: int) -> torch.Tensor:
     """``iterations`` gaussian mean-shift updates of every point of unit
     rows ``X [B, N, D]`` with per-shape ``bandwidth [B]``; each step moves
-    to the kernel-weighted mean and renormalizes.  Returns the modes."""
+    to the kernel-weighted mean and renormalizes.  Returns the modes,
+    differentiable in ``X`` through both arguments of every step."""
     X = X.contiguous()
     b2 = (bandwidth ** 2).float().contiguous()
     new_X = X

@@ -65,14 +65,27 @@ def state_dict_from_jax(variables) -> dict:
     """``{"params": ..., "batch_stats": ...}`` nested dicts of arrays of
     the JAX ``pointnet2_part_seg_msg.get_model`` -> the port's state_dict
     (torch f32 tensors)."""
-    params, stats = variables["params"], variables["batch_stats"]
+    return _convert(variables["params"], variables["batch_stats"])
+
+
+def params_from_jax(params) -> dict:
+    """A JAX ``params`` tree -- or a gradient tree, which has the same
+    structure -> ``{name: tensor}`` under the port's parameter names
+    (``dict(model.named_parameters())``'s keys)."""
+    return _convert(params, None)
+
+
+def _convert(params, stats) -> dict:
+    """The map of :func:`state_dict_from_jax`; without ``stats`` the
+    batch-norm running statistics are left out."""
     sd = {}
 
     def bn(prefix, path, scale, bias, mean, var):
         sd[f"{prefix}.weight"] = _get(params, path + (scale,))
         sd[f"{prefix}.bias"] = _get(params, path + (bias,))
-        sd[f"{prefix}.running_mean"] = _get(stats, path + (mean,))
-        sd[f"{prefix}.running_var"] = _get(stats, path + (var,))
+        if stats is not None:
+            sd[f"{prefix}.running_mean"] = _get(stats, path + (mean,))
+            sd[f"{prefix}.running_var"] = _get(stats, path + (var,))
 
     for conv, bnp, kind, path, aux in _entries():
         if kind == "gfl":

@@ -1,23 +1,28 @@
-"""Entry points of the port: the flagship model and its eval forward with
-primitive fit.
+"""Entry points of the port: the flagship model, its eval forward with
+primitive fit, and its two train steps.
 
-Mirrors ``__graft_entry__._flagship`` / ``entry`` and the program that
+Mirrors ``__graft_entry__._flagship`` / ``entry`` and the programs that
 ``bench.py`` times: ``pointnet2_part_seg_msg`` with 50 parts, in eval
-mode, run with the convex self-sup loss against the input cloud itself.
-Weights are random, made from a seed (lecun-normal kernels and zero biases,
-the JAX package's initializers; fresh batch-norm statistics).
+mode, run with the convex self-sup loss against the input cloud itself;
+and, in train mode with the f32 encoder (``bench.py``'s secondary
+configuration), the supervised step and the self-sup step.  Weights are
+random, made from a seed (lecun-normal kernels and zero biases, the JAX
+package's initializers; fresh batch-norm statistics).
 """
 
 import numpy as np
 import torch
 
 from prifit_torch.models.pointnet2_part_seg_msg import get_model
+from prifit_torch.train.state import create_train_state
 from prifit_torch.utils.device import resolve_device
 
 # the eval forward bench.py times (bench.py:71-88)
 BENCH_KWARGS = dict(quantile=0.05, msc_iterations=10, max_num_clusters=25,
                     n_per_prim=256, num_bandwidth_candidates=2)
 BENCH_BATCH, BENCH_NPOINT = 24, 2048
+# the per-step scalars of bench.py's train steps (bench.py:143-159)
+TRAIN_SETTINGS = dict(lr=0.001, bn_momentum=0.1, lmbda=1.0)
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator
@@ -46,6 +51,27 @@ def flagship(batch: int, npoint: int, *, device=None):
         device=device)
     cls = torch.zeros((batch, 16), dtype=torch.float32, device=device)
     return model, points, cls
+
+
+def train_flagship(batch: int, npoint: int, *, device=None):
+    """``(state, points, cls, target)``: the flagship with the f32 encoder
+    in train mode, random weights from seed 0 and an Adam
+    :class:`~prifit_torch.train.state.TrainState`; a gaussian cloud
+    ``[batch, npoint, 3]`` from seed 0 (the one :func:`flagship` makes),
+    category 0, and random part labels ``[batch, npoint]`` from the same
+    seed."""
+    device = resolve_device(device)
+    model = get_model(num_parts=50, compute_dtype="f32", device="cpu")
+    init_weights(model, torch.Generator().manual_seed(0))
+    state = create_train_state(model.to(device).train())
+    rng = np.random.default_rng(0)
+    points = torch.as_tensor(
+        rng.normal(size=(batch, npoint, 3)).astype(np.float32),
+        device=device)
+    target = torch.as_tensor(rng.integers(0, 50, size=(batch, npoint)),
+                             device=device)
+    cls = torch.zeros((batch, 16), dtype=torch.float32, device=device)
+    return state, points, cls, target
 
 
 def eval_forward(model, points, cls, **kwargs):

@@ -1,17 +1,18 @@
 """Weighted ellipsoid fitting into fixed cluster slots.
 
-Port of ``prifit_tpu/geometry/fitting.py`` (forward), batched over shapes
-and slots: weighted center and covariance, descending eigendecomposition,
-condition-number and minimum-weight validity, reflection fix, and axis
-lengths from the weight-scaled points in the eigenbasis.  Invalid slots get
-unit radii, identity axes and a zero center.  The guarded eigh backward of
-the JAX package is not ported yet.
+Port of ``prifit_tpu/geometry/fitting.py``, batched over shapes and
+slots: weighted center and covariance, descending eigendecomposition with
+the guarded backward, condition-number and minimum-weight validity,
+reflection fix, and axis lengths from the weight-scaled points in the
+eigenbasis.  Invalid slots get unit radii, identity axes and a zero
+center.
 """
 
 from typing import NamedTuple
 
 import torch
 
+GAP_EPS = 1e-6     # reference's eigen-gap guard
 COND_MAX = 1e5     # reference's condition-number cutoff
 WSUM_EPS = 1e-6    # minimum total weight for a slot to count
 
@@ -23,12 +24,44 @@ class PrimitiveParams(NamedTuple):
     valid: torch.Tensor    # [..., K] bool
 
 
+class Eigh3Guarded(torch.autograd.Function):
+    """``torch.linalg.eigh`` in descending order, with the guarded
+    backward of ``prifit_tpu/geometry/fitting.py:80-97``: the symmetric
+    eigh pullback whose eigenvalue gaps ``s_j - s_i`` are replaced by a
+    sign-preserving ``max(|gap|, 1e-6)``.  Repeated eigenvalues (an empty
+    slot's zero covariance) give large but finite gradients, where
+    torch's own backward forms ``inf * 0 = NaN``."""
+
+    @staticmethod
+    def forward(ctx, A):
+        w, v = torch.linalg.eigh(A)
+        s, V = w.flip(-1), v.flip(-1)
+        ctx.save_for_backward(s, V)
+        return s, V
+
+    @staticmethod
+    def backward(ctx, gs, gV):
+        s, V = ctx.saved_tensors
+        diff = s[..., None, :] - s[..., :, None]         # s_j - s_i
+        guarded = torch.sign(diff) * torch.clamp_min(diff.abs(), GAP_EPS)
+        guarded = torch.where(
+            diff.abs() < GAP_EPS,
+            torch.where(diff < 0, -GAP_EPS, GAP_EPS).to(diff.dtype),
+            guarded)
+        eye = torch.eye(3, dtype=torch.bool, device=s.device)
+        F = torch.where(eye, torch.zeros_like(diff), 1.0 / guarded)
+        Vt = V.transpose(-1, -2)
+        inner = F * torch.matmul(Vt, gV)
+        inner = (inner + inner.transpose(-1, -2)) / 2.0
+        gA = torch.matmul(torch.matmul(V, inner + torch.diag_embed(gs)), Vt)
+        return (gA + gA.transpose(-1, -2)) / 2.0
+
+
 def eigh3_guarded(A: torch.Tensor):
     """Eigendecomposition of symmetric 3x3 matrices ``[..., 3, 3]`` with
     DESCENDING eigenvalues: ``(s [..., 3], V [..., 3, 3])``,
-    ``A = V diag(s) V^T``."""
-    w, v = torch.linalg.eigh(A)
-    return w.flip(-1), v.flip(-1)
+    ``A = V diag(s) V^T``, with the guarded backward."""
+    return Eigh3Guarded.apply(A)
 
 
 def fix_reflection(V: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,9 @@ is compiled or imported from CUDA when this package is imported.
 from prifit_torch.kernels import bandwidth, fps, gather, mean_shift, nms
 from prifit_torch.kernels.build import build_all
 
-KERNELS = {m.KERNEL.name: m.KERNEL
-           for m in (fps, gather, bandwidth, mean_shift, nms)}
+KERNELS = {k.name: k for k in (
+    fps.KERNEL, gather.KERNEL, bandwidth.KERNEL, mean_shift.KERNEL,
+    mean_shift.BWD_KERNEL, nms.KERNEL)}
 
 
 def reset_launch_counts() -> None:

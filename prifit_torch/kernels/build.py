@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("fps", "gather", "bandwidth", "mean_shift", "nms")
+SOURCES = ("fps", "gather", "bandwidth", "mean_shift", "mean_shift_bwd",
+           "nms")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,7 +1,7 @@
 """Model output contract and encoder dtype selection.
 
-Port of ``prifit_tpu/models/common.py``: ``SegOutput``, ``encoder_dtypes``,
-``stage_cfg`` and ``maybe_quant``.
+Port of ``prifit_tpu/models/common.py``: ``SegOutput``, ``nll_loss``,
+``encoder_dtypes``, ``stage_cfg`` and ``maybe_quant``.
 """
 
 from typing import Any, NamedTuple
@@ -22,6 +22,16 @@ class SegOutput(NamedTuple):
     trans_feat: Any = None         # STN feature transform (pointnet only)
     recon_points: Any = None       # AtlasNet reconstruction | None
     embedding: Any = None          # [B, N, 128] extra_conv_emb output
+
+
+def nll_loss(pred_logprob: torch.Tensor, target: torch.Tensor
+             ) -> torch.Tensor:
+    """Mean negative log likelihood of ``target [...]`` (int labels)
+    under ``pred_logprob [..., C]`` log-probabilities (the JAX package's
+    ``nll_loss``, which corrects the reference's cross-entropy on
+    log-probabilities)."""
+    ll = torch.gather(pred_logprob, -1, target[..., None].long())[..., 0]
+    return -torch.mean(ll)
 
 
 def encoder_dtypes(compute_dtype: str):

@@ -22,6 +22,7 @@ from prifit_torch.models.common import (
     SegOutput,
     encoder_dtypes,
     maybe_quant,
+    nll_loss,
     stage_cfg,
 )
 from prifit_torch.nn.norm import BatchNorm
@@ -150,3 +151,9 @@ class get_model(nn.Module):
         return SegOutput(seg_logits=x, hidden=hidden, feat=feat,
                          total_loss=total_loss, chamfer_loss=chamfer,
                          convex=convex_out, embedding=feat_embed)
+
+
+def get_loss(pred, target, trans_feat=None):
+    """NLL over log-probabilities (``get_loss`` of the JAX package's
+    ``pointnet2_part_seg_msg``)."""
+    return nll_loss(pred, target)

@@ -25,7 +25,8 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_neighbors(points: torch.Tensor, idx: torch.Tensor
                      ) -> torch.Tensor:
-    """Neighbourhood gather, bit-exact: the gather kernel on CUDA."""
+    """Neighbourhood gather, bit-exact: the gather kernel on CUDA, with
+    the f32 scatter-add as its backward on either device."""
     return gather_rows(points.contiguous(), idx)
 
 

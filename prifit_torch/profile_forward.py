@@ -1,10 +1,11 @@
-"""Where the device time of the flagship eval forward with fit goes.
+"""Where the device time of the flagship's eval forward with fit, and of
+one self-sup train step, goes.
 
     python -m prifit_torch.profile_forward
 
-Builds the flagship model at B=24, N=2048 with seeded random weights
-(``entry.flagship``), warms it up, and profiles one forward with
-``torch.profiler``.  It prints the card's name and power limit, then:
+Builds the flagship at B=24, N=2048 with seeded random weights, warms it
+up, and profiles with ``torch.profiler``.  It prints the card's name and
+power limit, then for one eval forward (``entry.flagship``, default dtype):
 
   1. per stage, its span on the device (from its first kernel's start to
      its last kernel's end: the device-side mirror of its profiler range),
@@ -19,6 +20,14 @@ Builds the flagship model at B=24, N=2048 with seeded random weights
      its device-side mirror does not.)
   2. the device's busy and idle share of the forward's wall time;
   3. device time by kernel, the largest first.
+
+Then the same for one self-sup train step (``entry.train_flagship``, f32
+encoder, bench settings) after a warm-up step: the stage table of its
+forward (the ``train_forward`` range of ``train/steps.py``), the busy and
+idle share, and its backward by kernel: the device kernels that start
+after the forward's device span ends and before the optimizer's
+(``optimizer_step``) begins.  The backward runs on autograd's own
+thread, so a range around it would have no device-side mirror.
 
 Needs a CUDA device.
 """
@@ -43,6 +52,8 @@ CONVEX_STAGES = {
 }
 STAGES = ENCODER_STAGES + tuple(
     s for top, inner in CONVEX_STAGES.items() for s in (top,) + inner)
+STEP_RANGES = ("train_forward", "optimizer_step")
+RANGES = STAGES + STEP_RANGES
 TOP_KERNELS = 25
 
 
@@ -65,36 +76,49 @@ def _encoder_ranges(model):
     return hooks
 
 
-def profile_forward(model, points, cls):
-    """Profiles one forward: ``(wall_s, stages, kernels)``, where
-    ``stages`` maps each stage to its (device span us, device busy us,
-    host us) and ``kernels`` lists (name, device us, count), the largest
-    first."""
+def _profile(model, run):
+    """``run()`` once under the profiler with the encoder ranges hooked
+    in: ``(wall_s, events, key_averages)``."""
     hooks = _encoder_ranges(model)
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            entry.eval_forward(model, points, cls, **entry.BENCH_KWARGS)
+            run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         for h in hooks:
             h.remove()
-    events = prof.events()
-    # device-side kernels and copies, without the ranges' mirrors
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in STAGES]
+    return wall, prof.events(), prof.key_averages()
+
+
+def _ranges(events, names):
+    """Each range's host intervals and device-side intervals; raises if
+    one of ``names`` is missing from either side."""
     host, spans = {}, {}
     for e in events:
-        if e.name in STAGES:
+        if e.name in RANGES:
             side = host if e.device_type == DeviceType.CPU else spans
             side.setdefault(e.name, []).append(
                 (e.time_range.start, e.time_range.end))
-    missing = [s for s in STAGES if s not in host or s not in spans]
+    missing = [s for s in names if s not in host or s not in spans]
     if missing:
-        raise RuntimeError(f"stages missing from the profile: {missing}")
+        raise RuntimeError(f"ranges missing from the profile: {missing}")
+    return host, spans
+
+
+def _device_kernels(events):
+    """Device-side kernels and copies, without the ranges' mirrors."""
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name not in RANGES]
+
+
+def _stage_times(events):
+    """Each stage's (device span us, device busy us, host us)."""
+    host, spans = _ranges(events, STAGES)
+    device = _device_kernels(events)
     stages = {}
     for name in STAGES:
         busy = sum(k.time_range.elapsed_us() for k in device
@@ -102,14 +126,68 @@ def profile_forward(model, points, cls):
                           for a, b in spans[name]))
         stages[name] = (sum(b - a for a, b in spans[name]), busy,
                         sum(b - a for a, b in host[name]))
-    # an aten op's row repeats the time of the kernels it launched, so
-    # only device-side rows are summed
-    kernels = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0
-                      and e.key not in STAGES), key=lambda r: -r[1])
-    return wall, stages, kernels
+    return stages
+
+
+def _by_kernel(averages):
+    """(name, device us, count) of every device kernel, the largest
+    first.  An aten op's row repeats the time of the kernels it launched,
+    so only device-side rows are summed."""
+    return sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in averages
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and e.key not in RANGES), key=lambda r: -r[1])
+
+
+def profile_forward(model, points, cls):
+    """Profiles one eval forward: ``(wall_s, stages, kernels)``, where
+    ``stages`` maps each stage to its (device span us, device busy us,
+    host us) and ``kernels`` lists (name, device us, count), the largest
+    first."""
+    wall, events, averages = _profile(model, lambda: entry.eval_forward(
+        model, points, cls, **entry.BENCH_KWARGS))
+    return wall, _stage_times(events), _by_kernel(averages)
+
+
+def profile_selfsup_step(state, run):
+    """Profiles one self-sup step ``run()``: ``(wall_s, stages, kernels,
+    backward, optimizer_us)``; ``backward`` lists the (name, device us,
+    count) of the kernels between the forward's and the optimizer's
+    device spans, the largest first."""
+    wall, events, averages = _profile(state.model, run)
+    _, spans = _ranges(events, ("train_forward", "optimizer_step"))
+    fwd_end = max(b for _, b in spans["train_forward"])
+    opt_start = min(a for a, _ in spans["optimizer_step"])
+    backward = {}
+    for k in _device_kernels(events):
+        if fwd_end <= k.time_range.start < opt_start:
+            us, n = backward.get(k.name, (0.0, 0))
+            backward[k.name] = (us + k.time_range.elapsed_us(), n + 1)
+    backward = sorted(((name, us, n) for name, (us, n) in backward.items()),
+                      key=lambda r: -r[1])
+    opt_us = sum(b - a for a, b in spans["optimizer_step"])
+    return wall, _stage_times(events), _by_kernel(averages), backward, opt_us
+
+
+def _print_stages(stages, busy_ms):
+    print("stage: device span ms, device busy ms (kernels in the span), "
+          "host ms")
+    for top in ENCODER_STAGES + tuple(CONVEX_STAGES):
+        for name in (top,) + CONVEX_STAGES.get(top, ()):
+            span, dev, host = stages[name]
+            indent = "  " if name == top else "    . "
+            print(f"{indent}{name:28s} {span / 1e3:9.3f} {dev / 1e3:9.3f} "
+                  f"{host / 1e3:9.3f}")
+    outside = busy_ms - sum(stages[s][1] for s in ENCODER_STAGES
+                            + tuple(CONVEX_STAGES)) / 1e3
+    print(f"  {'busy outside the stages':28s} {outside:19.3f}")
+
+
+def _print_kernels(title, kernels):
+    print(title)
+    for key, us, count in kernels[:TOP_KERNELS]:
+        print(f"  {us / 1e3:9.3f}  x{count:<5d} {key[:100]}")
 
 
 def main():
@@ -128,23 +206,38 @@ def main():
 
     wall, stages, kernels = profile_forward(model, points, cls)
     busy = sum(r[1] for r in kernels) / 1e3
-    print("stage: device span ms, device busy ms (kernels in the span), "
-          "host ms")
-    for top in ENCODER_STAGES + tuple(CONVEX_STAGES):
-        for name in (top,) + CONVEX_STAGES.get(top, ()):
-            span, dev, host = stages[name]
-            indent = "  " if name == top else "    . "
-            print(f"{indent}{name:28s} {span / 1e3:9.3f} {dev / 1e3:9.3f} "
-                  f"{host / 1e3:9.3f}")
-    outside = busy - sum(stages[s][1] for s in ENCODER_STAGES
-                         + tuple(CONVEX_STAGES)) / 1e3
-    print(f"  {'busy outside the stages':28s} {outside:19.3f}")
+    print("== eval forward with fit")
+    _print_stages(stages, busy)
     print(f"profiled forward: wall {wall * 1e3:.3f} ms, device busy "
           f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
           f"{100 - 100 * busy / (wall * 1e3):.1f}%")
-    print("device ms by kernel (self), top:")
-    for key, us, count in kernels[:TOP_KERNELS]:
-        print(f"  {us / 1e3:9.3f}  x{count:<5d} {key[:100]}")
+    _print_kernels("device ms by kernel (self), top:", kernels)
+    del model
+
+    from prifit_torch.train.steps import make_selfsup_step
+    state, points, cls, _ = entry.train_flagship(B, N)
+    ts = entry.TRAIN_SETTINGS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = make_selfsup_step(**entry.BENCH_KWARGS)
+
+    def run():
+        step(state, points, cls, points, ts["lr"], ts["bn_momentum"],
+             ts["lmbda"], gen)
+
+    run()
+    torch.cuda.synchronize()
+    wall, stages, kernels, backward, opt_us = profile_selfsup_step(state,
+                                                                   run)
+    busy = sum(r[1] for r in kernels) / 1e3
+    bwd = sum(r[1] for r in backward) / 1e3
+    print("== self-sup train step (f32 encoder), forward stages")
+    _print_stages(stages, busy)
+    print(f"profiled step: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
+          f"{100 - 100 * busy / (wall * 1e3):.1f}%; backward kernels "
+          f"{bwd:.3f} ms busy; optimizer span {opt_us / 1e3:.3f} ms")
+    _print_kernels("backward device ms by kernel, top:", backward)
+    _print_kernels("step device ms by kernel (self), top:", kernels)
 
 
 if __name__ == "__main__":

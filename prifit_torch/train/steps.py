@@ -1,0 +1,97 @@
+"""Train steps: supervised NLL and the self-supervised convex loss.
+
+Port of ``prifit_tpu/train/steps.py::make_supervised_step`` and
+``make_selfsup_step``.  A step runs the train-mode forward, the backward
+and one optimizer update eagerly.  Unlike the JAX steps, which return a
+new state, it updates the state's model (parameters, batch-norm running
+statistics, the self-sup ``beta`` buffer) and optimizer IN PLACE and
+returns the same state with its step count advanced.
+
+Randomness (the FPS start and dropout) comes from the ``generator``
+argument; without one FPS starts at index 0, and dropout needs one.  The
+forward and the update are profiler ranges of their own names (read by
+:mod:`prifit_torch.profile_forward`, which finds the backward's kernels
+between them).
+"""
+
+from typing import Callable
+
+import torch
+from torch.profiler import record_function
+
+from prifit_torch.train.state import TrainState
+
+
+def _apply_gradients(state: TrainState, lr: float) -> None:
+    """One optimizer update at learning rate ``lr``.  A parameter the loss
+    does not reach gets a zero gradient first, so that Adam's coupled
+    weight decay still moves it, as the JAX optimizer does."""
+    opt = state.optimizer
+    with record_function("optimizer_step"):
+        for group in opt.param_groups:
+            group["lr"] = lr
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        opt.step()
+    state.step += 1
+
+
+def _no_fused_augment(fused_augment: bool) -> None:
+    if fused_augment:
+        raise NotImplementedError(
+            "fused_augment: the on-device augment is not ported yet")
+
+
+def make_supervised_step(model_loss: Callable,
+                         fused_augment: bool = False) -> Callable:
+    """``model_loss(seg_logits, target, trans_feat) -> scalar`` (the model
+    module's ``get_loss``) -> ``step(state, points, cls_onehot, target,
+    lr, bn_momentum, generator=None) -> (state, {loss, acc})``, updating
+    ``state`` in place."""
+    _no_fused_augment(fused_augment)
+
+    def step(state: TrainState, points, cls_onehot, target, lr: float,
+             bn_momentum: float, generator: torch.Generator | None = None):
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with record_function("train_forward"):
+            out = model(points, cls_onehot, bn_momentum=bn_momentum,
+                        generator=generator)
+            loss = model_loss(out.seg_logits, target, out.trans_feat)
+        loss.backward()
+        _apply_gradients(state, lr)
+        with torch.no_grad():
+            acc = (out.seg_logits.argmax(-1) == target).float().mean()
+        return state, {"loss": loss.detach(), "acc": acc}
+
+    return step
+
+
+def make_selfsup_step(*, fused_augment: bool = False,
+                      **convex_kwargs) -> Callable:
+    """``convex_kwargs``: the model's convex-loss arguments (quantile,
+    msc_iterations, max_num_clusters, n_per_prim, ...) ->
+    ``step(state, points, cls_onehot, chamfer_points, lr, bn_momentum,
+    lmbda, generator=None) -> (state, {ss_loss, chamfer_loss})`` with
+    ``ss_loss = mean(total_loss) * lmbda``, updating ``state`` in
+    place."""
+    _no_fused_augment(fused_augment)
+    kwargs = {"include_convex_loss": True, **convex_kwargs}
+
+    def step(state: TrainState, points, cls_onehot, chamfer_points,
+             lr: float, bn_momentum: float, lmbda: float,
+             generator: torch.Generator | None = None):
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with record_function("train_forward"):
+            out = model(points, cls_onehot, chamfer_points=chamfer_points,
+                        bn_momentum=bn_momentum, generator=generator,
+                        **kwargs)
+            ss_loss = torch.mean(out.total_loss) * lmbda
+        ss_loss.backward()
+        _apply_gradients(state, lr)
+        return state, {"ss_loss": ss_loss.detach(),
+                       "chamfer_loss": out.chamfer_loss.detach()}
+
+    return step
