@@ -6,28 +6,38 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds every hand-written kernel from ``prifit_torch/kernels/csrc``,
 holds each against its plain PyTorch version at the shapes the main paths
 give it (and times both, with a one-call PyTorch yardstick where one
-exists), and drives the port's two main paths through
-``prifit_torch.entry``, each with the launch counts set to 0 just before
-it and read just after:
+exists): FPS, gather, bandwidth, the mean-shift forward and backward and
+NMS; the K-max backward pair (``max_bwd_cnt_gsm``, ``max_bwd_dz``) at the
+six K-max regions' shapes with stochastic rounding on and off, bit for
+bit; and the ``sr_bf16`` cast at the sizes one ``mxsr`` step casts, bit
+for bit.  It drives the port's main paths through ``prifit_torch.entry``,
+each with the launch counts set to 0 just before it and read just after:
 
   - the flagship eval forward with primitive fit at B=24, N=2048;
-  - the two train steps at B=24, N=2048 with the f32 encoder: a warm-up
-    and three timed supervised steps, then the same for the self-sup step.
+  - the two train steps at B=24, N=2048 at the default encoder dtype
+    (``"auto"`` = ``mxsr``): a warm-up and three timed supervised steps,
+    then the same for the self-sup step; each step launches the K-max
+    backward pair once per K-max region (6 times);
+  - the same two steps with the f32 encoder.
 
-It checks that every kernel was launched by the paths that run it.  Then
-it compares, card against CPU: a B=2 eval forward; ``cluster_batch`` at
-the main path's shapes on structured embeddings (several clusters per
-shape; the per-shape retry on some); one B=2 supervised step (loss and
-every gradient); one B=2 self-sup step (losses); and the gradient of the
+It checks that every kernel was launched by the paths that run it, and
+no other.  Then it compares, card against CPU: a B=2 eval forward;
+``cluster_batch`` at the main path's shapes on structured embeddings
+(several clusters per shape; the per-shape retry on some); one B=2 f32
+supervised step (loss and every gradient); one B=2 f32 self-sup step
+(losses); one B=2 ``mxsr`` supervised step with the same rounding key on
+both sides (the loss, and every gradient against the CPU's own spread
+under 2^-20 and 2^-19 changes of the input); and the gradient of the
 convex loss in the embeddings on structured embeddings.  It prints:
 
   - the card's name and power limit (nvidia-smi);
   - the paths' times, peak memory and launch counts;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the main paths, its error against the plain version, and the times of
-    the calls one forward or one self-sup step makes (kernel, plain
-    version, library call) beside the least time the card could take for
-    that work;
+    the five paths (and their sum), its error against the plain version,
+    and the times of the calls one forward or one step makes (kernel,
+    plain version, library call) beside the least time the card could
+    take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
+    false);
   - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
@@ -288,6 +298,162 @@ def check_nms():
                 library_ms=None, bound=bound_ms(byt, ops))
 
 
+# (rows, K, F) of the six K-max regions of one train step at B=24, N=2048:
+# sa1's three scales (512 centres, K = 32/64/128), sa2's two (128 centres,
+# K = 64/128) and sa3's group-all chain (1 centre, K = 128 points)
+MAX_BWD_SHAPES = [(B * 512, 32, 64), (B * 512, 64, 128), (B * 512, 128, 128),
+                  (B * 128, 64, 256), (B * 128, 128, 256), (B, 128, 1024)]
+KEY_255, KEY_0 = (0x1234ABCD, 0x9E3779B9), (0xCAFEBABE, 12345)
+# the kernels that only a train step's backward runs; the last three only
+# at the mixed-precision dtypes
+MIXED_ONLY = ("max_bwd_cnt_gsm", "max_bwd_dz", "sr_bf16")
+TRAIN_ONLY = ("mean_shift_bwd",) + MIXED_ONLY
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def max_bwd_inputs(gen, rows, K, F, sr):
+    """One K-max region's backward inputs on the card, as the region
+    keeps them: z [rows*K, F] bf16 from a Gaussian with ties planted (5%
+    of the neighbours copy their row's selected value), the BN affine
+    ``a`` (either sign) and ``c`` in bf16, zsel = max_K z where a > 0 and
+    min_K z elsewhere, out = relu(a zsel + c) in bf16, and the output
+    cotangent g (bf16 under sr, f32 otherwise); plus the f32 statistics
+    (scale, mean, inv) and the row count."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    scale, mean = randn(F), 0.1 * randn(F)
+    inv = 0.5 + torch.rand((F,), generator=gen, device="cuda")
+    a_bf, c_bf = (scale * inv).bfloat16(), (0.5 * randn(F)).bfloat16()
+    zk = randn(rows, K, F).bfloat16()
+    zsel = torch.where(a_bf > 0, zk.amax(1), zk.amin(1))
+    tie = torch.rand((rows, K, F), generator=gen, device="cuda") < 0.05
+    zk = torch.where(tie, zsel[:, None, :], zk)
+    out_bf = torch.relu((zsel.float() * a_bf.float() + c_bf.float())
+                        .bfloat16())
+    g = randn(rows, F)
+    return dict(z=zk.reshape(rows * K, F), zsel=zsel, out_bf=out_bf,
+                g=g.bfloat16() if sr else g, scale=scale, mean=mean, inv=inv,
+                n=float(rows * K))
+
+
+def max_bwd_consts(x, cnt, gsm):
+    """``(a, c1, c2)`` of the dz pass from pass 1's outputs (the
+    per-feature reductions of ``nn/mixed.py::_max_bwd_core``)."""
+    gsm32 = gsm.float()
+    xhat_sel = (x["zsel"].float() - x["mean"]) * x["inv"]
+    dbias = (gsm32 * cnt).sum(0)
+    dscale = (gsm32 * cnt * xhat_sel).sum(0)
+    inv, scale, n = x["inv"], x["scale"], x["n"]
+    return ((inv * scale).contiguous(), inv * scale * dbias / n,
+            inv * inv * scale * dscale / n)
+
+
+def check_max_bwd():
+    """Kernels #7 (``max_bwd_cnt_gsm``) and #8 (``max_bwd_dz``) against
+    their plain versions at the six K-max regions' shapes, with
+    stochastic rounding on (``mxsr``) and off (``mx``): cnt, gsm and dz
+    bit-equal (the kernels round each product and difference as the
+    plain version does, and take the same hash bits).  Times the six
+    calls of one ``mxsr`` step of each; no single PyTorch call computes
+    either function."""
+    from prifit_torch.kernels import max_bwd
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    timed = {}
+    for sr in (True, False):
+        k255, k0 = (KEY_255, KEY_0) if sr else (None, None)
+        for shape in MAX_BWD_SHAPES:
+            x = max_bwd_inputs(gen, *shape, sr)
+            args = (x["z"], x["zsel"], x["g"], x["out_bf"], k255)
+            cnt, gsm = max_bwd.cnt_gsm(*args)
+            cnt_p, gsm_p = max_bwd.cnt_gsm_plain(*args)
+            if not (torch.equal(cnt, cnt_p)
+                    and torch.equal(_bits(gsm), _bits(gsm_p))):
+                raise AssertionError(f"max_bwd_cnt_gsm differs from its "
+                                     f"plain version at {shape}, sr={sr}")
+            if not bool((cnt > 1).any()):
+                raise AssertionError(f"no ties at {shape}")
+            a, c1, c2 = max_bwd_consts(x, cnt, gsm)
+            dargs = (x["z"], x["zsel"], gsm, a, c1, x["mean"], c2, k0)
+            dz, dz_p = max_bwd.dz(*dargs), max_bwd.dz_plain(*dargs)
+            if not torch.equal(_bits(dz), _bits(dz_p)):
+                raise AssertionError(
+                    f"max_bwd_dz differs from its plain version at {shape}, "
+                    f"sr={sr}: {int((_bits(dz) != _bits(dz_p)).sum())} of "
+                    f"{dz.numel()} elements")
+            if sr:
+                timed[shape] = (args, dargs, cnt, gsm, dz)
+            del x, cnt_p, gsm_p, dz_p
+    calls = list(timed.values())
+    out = {}
+    for name, fn, plain, reads, writes in (
+            ("max_bwd_cnt_gsm", lambda c: max_bwd.cnt_gsm(*c[0]),
+             lambda c: max_bwd.cnt_gsm_plain(*c[0]),
+             lambda c: c[0][:4], lambda c: (c[2], c[3])),
+            ("max_bwd_dz", lambda c: max_bwd.dz(*c[1]),
+             lambda c: max_bwd.dz_plain(*c[1]),
+             lambda c: c[1][:7], lambda c: (c[4],))):
+        ms = cuda_ms(lambda: [fn(c) for c in calls])
+        plain_ms = cuda_ms(lambda: [plain(c) for c in calls], reps=3)
+        # each input read once, each output written once; the f32
+        # arithmetic (a compare per element for pass 1, six flops per
+        # element for pass 2) is far below the byte time
+        byt = sum(nbytes(*reads(c), *writes(c)) for c in calls)
+        per_elem = 1 if name == "max_bwd_cnt_gsm" else 6
+        ops = sum(per_elem * c[0][0].numel() for c in calls)
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound=bound_ms(byt, ops))
+    return out
+
+
+class record_sr_calls:
+    """While active, records the number of elements of every stochastic
+    rounding cast the mixed-precision region makes (``nn/mixed.py``
+    calls ``sr_bf16`` by that module's name)."""
+
+    def __enter__(self):
+        import prifit_torch.nn.mixed as mixed
+        self.mixed, self.orig, self.numels = mixed, mixed.sr_bf16, []
+
+        def sr_bf16(key, x):
+            self.numels.append(x.numel())
+            return self.orig(key, x)
+
+        mixed.sr_bf16 = sr_bf16
+        return self
+
+    def __exit__(self, *exc):
+        self.mixed.sr_bf16 = self.orig
+
+
+def check_sr_bf16(numels):
+    """The ``sr_bf16`` helper kernel against its plain version, bit for
+    bit, at the sizes of the casts one ``mxsr`` supervised step makes
+    (``numels``) and at an odd size (the one-value-per-thread path);
+    times all of one step's casts."""
+    from prifit_torch.kernels import stochastic_round as sr
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    buf = 3 * torch.randn((max(numels),), generator=gen, device="cuda")
+    for n in sorted(set(numels)) + [1001]:
+        x = buf[:n]
+        if not torch.equal(_bits(sr.sr_bf16(KEY_0, x)),
+                           _bits(sr.sr_bf16_plain(KEY_0, x))):
+            raise AssertionError(f"sr_bf16 differs from its plain version "
+                                 f"at {n} elements")
+    xs = [buf[:n] for n in numels]
+    ms = cuda_ms(lambda: [sr.sr_bf16(KEY_0, x) for x in xs])
+    plain_ms = cuda_ms(lambda: [sr.sr_bf16_plain(KEY_0, x) for x in xs],
+                       reps=3)
+    # 4 bytes read and 2 written per element; the hash is integer work
+    # (about 12 operations an element), counted here at the f32 rate
+    byt = 6 * sum(numels)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound=bound_ms(byt, 12 * sum(numels)))
+
+
 def main_path(entry, kernels):
     """The flagship eval forward with fit at B=24, N=2048: one warm-up
     forward, then three with the launch counts reset just before."""
@@ -313,14 +479,14 @@ def main_path(entry, kernels):
     nc = out.convex.clusters.num_clusters
     if not bool(((nc >= 1) & (nc <= 25)).all()):
         raise AssertionError(f"num_clusters out of range: {nc.tolist()}")
-    # the mean-shift backward runs only in training (train_path)
     missing = [k for k, v in counts.items()
-               if v == 0 and k != "mean_shift_bwd"]
+               if v == 0 and k not in TRAIN_ONLY]
     if missing:
         raise AssertionError(f"kernels never launched on the eval path: "
                              f"{missing}")
-    if counts["mean_shift_bwd"]:
-        raise AssertionError("the eval forward launched the backward")
+    if any(counts[k] for k in TRAIN_ONLY):
+        raise AssertionError(f"the eval forward launched a backward kernel: "
+                             f"{counts}")
     return counts, times, out
 
 
@@ -338,16 +504,20 @@ def _check_step(state, before, metrics, what):
             raise AssertionError(f"{what}: {name} did not move")
 
 
-def train_path(entry, kernels):
-    """The two train steps at B=24, N=2048 with the f32 encoder
-    (``entry.train_flagship``, ``bench.py``'s settings): for each, one
-    warm-up step, then three timed ones with the launch counts reset just
-    before.  Returns per step kind its times, launch counts, peak memory
-    and last metrics."""
+def train_path(entry, kernels, compute_dtype):
+    """The two train steps at B=24, N=2048 with the encoder dtype
+    ``compute_dtype`` (``entry.train_flagship``, ``bench.py``'s settings:
+    ``"auto"`` = ``mxsr`` its headline train fields, ``"f32"`` its
+    secondary ones): for each, one warm-up step, then three timed ones
+    with the launch counts reset just before.  Returns per step kind its
+    times, launch counts, peak memory and last metrics; for ``f32`` also
+    the mean-shift backward's cotangent rows (:func:`g_row_share`), for
+    ``auto`` the sizes of one supervised step's rounding casts."""
     from prifit_torch.models.pointnet2_part_seg_msg import get_loss
     from prifit_torch.train.steps import make_selfsup_step, \
         make_supervised_step
-    state, points, cls, target = entry.train_flagship(B, N)
+    state, points, cls, target = entry.train_flagship(
+        B, N, compute_dtype=compute_dtype)
     ts = entry.TRAIN_SETTINGS
     gen = torch.Generator(device="cuda").manual_seed(0)
     sup = make_supervised_step(get_loss)
@@ -377,11 +547,13 @@ def train_path(entry, kernels):
                          peak=torch.cuda.max_memory_allocated(),
                          metrics={k: v.item() for k, v in metrics.items()})
     sc, ssc = out["supervised"]["counts"], out["selfsup"]["counts"]
-    for k in ("fps", "gather"):
+    mixed = compute_dtype != "f32"
+    for k in ("fps", "gather") + (MIXED_ONLY if mixed else ()):
         if not (sc[k] > 0 and ssc[k] > 0):
             raise AssertionError(f"{k} not launched in both steps: {sc} "
                                  f"{ssc}")
-    missing = [k for k, v in ssc.items() if v == 0]
+    missing = [k for k, v in ssc.items()
+               if v == 0 and (mixed or k not in MIXED_ONLY)]
     if missing:
         raise AssertionError(f"kernels never launched by the self-sup "
                              f"step: {missing}")
@@ -389,7 +561,23 @@ def train_path(entry, kernels):
     if not (bwd == fwd and fwd >= 30 and fwd % 10 == 0):
         raise AssertionError(f"mean_shift_bwd launched {bwd} times for "
                              f"{fwd} forward steps in 3 self-sup steps")
-    out["g_rows"] = g_row_share(entry, state, points, cls, gen)
+    for c in (sc, ssc):
+        # one launch of each per K-max region and step: 6 regions, 3 steps
+        want = 18 if mixed else 0
+        if not (c["max_bwd_cnt_gsm"] == c["max_bwd_dz"] == want):
+            raise AssertionError(f"K-max backward launched {c} in 3 "
+                                 f"{compute_dtype} steps, not {want} each")
+        if not mixed and c["sr_bf16"]:
+            raise AssertionError("the f32 step rounded stochastically")
+    if mixed:
+        with record_sr_calls() as rec:
+            runs["supervised"]()
+        if len(rec.numels) * 3 != sc["sr_bf16"]:
+            raise AssertionError(f"{len(rec.numels)} casts recorded, "
+                                 f"{sc['sr_bf16']} launched in 3 steps")
+        out["sr_numels"] = rec.numels
+    else:
+        out["g_rows"] = g_row_share(entry, state, points, cls, gen)
     return out
 
 
@@ -504,7 +692,8 @@ def train_card_vs_cpu(entry):
     res = {}
     for dev in ("cuda", "cpu", "cpu64"):
         state, points, cls, target = entry.train_flagship(
-            2, N, device="cuda" if dev == "cuda" else "cpu")
+            2, N, device="cuda" if dev == "cuda" else "cpu",
+            compute_dtype="f32")
         state.model.dropout_rate = 0.0
         if dev == "cpu64":
             state.model.double()
@@ -538,6 +727,75 @@ def train_card_vs_cpu(entry):
             raise AssertionError(f"self-sup {what} card {a} cpu {b}")
     return dict(loss=(lg, lc, res["cpu64"][0]), grad_err=errs,
                 ss_loss=(sg, sc), chamfer=(cg, cc))
+
+
+SR_BASE = (12345, 0xCAFEBABE)
+# the input scales of the CPU's own spread
+SPREAD_SCALES = (1 + 2.0 ** -20, 1 - 2.0 ** -20, 1 + 2.0 ** -19,
+                 1 - 2.0 ** -19)
+
+
+def mxsr_train_card_vs_cpu(entry):
+    """One B=2 supervised step at the default dtype (``mxsr``) on the
+    card and on the CPU, from the same seeded weights and the same
+    stochastic-rounding base key (so both draw the same bits), dropout
+    off and FPS from index 0; four more CPU steps on the cloud scaled by
+    1 +- 2^-20 and 1 +- 2^-19; and one CPU step with another key.
+
+    bf16 storage makes this gradient chaotic: a z that sums to another
+    f32 value (cuBLAS against the CPU, or a moved input) rounds to
+    another bf16 value now and then, which moves a K-max tie or a relu
+    boundary, and every batch norm's backward amplifies that (it
+    subtracts the mean of its cotangent, a sum of terms that nearly
+    cancel; in f32 the same amplification leaves card and CPU 1e-2 of
+    the norm apart).  So each gradient's limit is the CPU's own spread
+    under those input changes (the largest relative change of that
+    parameter's gradient over the four): the card must be within twice
+    it, plus 5e-2 of the norm (the f32 steps' limit).  The loss, a
+    forward value, must be within 1e-3 relative: every activation is
+    rounded to bf16, and the card's f32 sums land on the other side of a
+    rounding now and then (the bf16 eval forward's total-loss limit is
+    1e-2).  Also returns the medians over the parameters of the card's
+    error, the CPU's spread and the change another key makes."""
+    from prifit_torch.models.pointnet2_part_seg_msg import get_loss
+    from prifit_torch.train.steps import make_supervised_step
+    ts = entry.TRAIN_SETTINGS
+    res = []
+    for dev, s, key in [("cuda", 1.0, SR_BASE), ("cpu", 1.0, SR_BASE)] + [
+            ("cpu", s, SR_BASE) for s in SPREAD_SCALES] + [
+            ("cpu", 1.0, (777, 999))]:
+        state, points, cls, target = entry.train_flagship(2, N, device=dev)
+        state.model.dropout_rate = 0.0
+        _, sm = make_supervised_step(get_loss)(
+            state, points * s, cls, target, ts["lr"], ts["bn_momentum"],
+            sr_key=key)
+        res.append((sm["loss"].item(),
+                    {n: p.grad.float().cpu()
+                     for n, p in state.model.named_parameters()}))
+    (lg, gg), (lc, gc), other_key = res[0], res[1], res[-1]
+    res = res[:-1]
+    l_spread = max(abs(r[0] - lc) for r in res[2:])
+    if not abs(lg - lc) <= 1e-3 * abs(lc):
+        raise AssertionError(f"mxsr supervised loss card {lg} cpu {lc}")
+    worst = (0.0, 0.0, None)
+    errs, spreads, keyed = [], [], []
+    for name, r in gc.items():
+        if _zero_grad_bias(name) or not bool(r.any()):
+            continue
+        err = float((gg[name] - r).norm() / r.norm())
+        spread = max(float((g[name] - r).norm() / r.norm())
+                     for _, g in res[2:])
+        errs.append(err)
+        spreads.append(spread)
+        keyed.append(float((other_key[1][name] - r).norm() / r.norm()))
+        if not err <= 2 * spread + 5e-2:
+            raise AssertionError(f"mxsr gradient of {name}: card vs cpu "
+                                 f"{err} of the norm, cpu spread {spread}")
+        if err / (spread + 1e-30) >= worst[0] / (worst[1] + 1e-30):
+            worst = (err, spread, name)
+    return dict(loss=(lg, lc), loss_spread=l_spread, worst=worst,
+                medians=tuple(float(np.median(v))
+                              for v in (errs, spreads, keyed)))
 
 
 def convex_grad_card_vs_cpu():
@@ -695,6 +953,25 @@ def clusters_card_vs_cpu(entry):
     return same_clustering(g, c, expected), expected
 
 
+# what each kernel phase times
+CALLS_OF = {"mean_shift_bwd": "one self-sup step",
+            "max_bwd_cnt_gsm": "one mxsr train step",
+            "max_bwd_dz": "one mxsr train step",
+            "sr_bf16": "one mxsr supervised step"}
+# the helper kernel has no TPU counterpart: in the JAX package the cast is
+# an XLA fusion
+SR_REPLACES = "prifit_tpu/nn/mixed.py:115 (sr_bf16, an XLA fusion)"
+
+
+def log_kernels(results, smi):
+    for name, r in results.items():
+        log(f"{name}: max_abs_err {r['max_abs_err']:.3g} kernel_ms "
+            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{r['library_ms']} bound_ms {r['bound'][0]:.4f} "
+            f"({r['bound'][1]}) [calls of "
+            f"{CALLS_OF.get(name, 'one forward')}, {smi}]")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -723,13 +1000,9 @@ def main():
     results["mean_shift"] = check_mean_shift(X, bw)
     results["mean_shift_bwd"] = check_mean_shift_bwd(X, bw)
     results["nms"] = check_nms()
-    for name, r in results.items():
-        calls = "one self-sup step" if name == "mean_shift_bwd" else \
-            "one forward"
-        log(f"{name}: max_abs_err {r['max_abs_err']:.3g} kernel_ms "
-            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
-            f"{r['library_ms']} bound_ms {r['bound'][0]:.4f} "
-            f"({r['bound'][1]}) [calls of {calls}, {smi}]")
+    del X, kth
+    results.update(check_max_bwd())
+    log_kernels(results, smi)
 
     counts, times, out = main_path(entry, kernels)
     t = sorted(times)[1]
@@ -739,6 +1012,7 @@ def main():
         f"num_clusters "
         f"{out.convex.clusters.num_clusters.tolist()}; total_loss "
         f"{out.total_loss.item():.6f}")
+    del out
 
     err, nc, lg, lc = card_vs_cpu(entry)
     log(f"card vs cpu B=2: logits max abs err {err:.3g}, num_clusters "
@@ -748,41 +1022,59 @@ def main():
         f"num_clusters {nc} equal, same partitions, weights err "
         f"{w_err:.3g}, centers err {c_err:.3g}")
 
-    train = train_path(entry, kernels)
-    for name in ("supervised", "selfsup"):
-        r = train[name]
-        t = sorted(r["times"])[1]
-        log(f"train path B={B} N={N} f32, {name} step: {t * 1e3:.1f} ms "
-            f"(median of 3; {', '.join(f'{x * 1e3:.1f}' for x in r['times'])}"
-            f"), {B / t:.1f} clouds/s [{smi}]; peak memory "
-            f"{r['peak'] / 2**30:.2f} GiB; launches in 3 steps "
-            f"{r['counts']}; last metrics {r['metrics']}")
-    top, share = train["g_rows"]
+    train = {dt: train_path(entry, kernels, dt) for dt in ("auto", "f32")}
+    for dt, tr in train.items():
+        for name in ("supervised", "selfsup"):
+            r = tr[name]
+            t = sorted(r["times"])[1]
+            log(f"train path B={B} N={N} {dt}, {name} step: "
+                f"{t * 1e3:.1f} ms (median of 3; "
+                f"{', '.join(f'{x * 1e3:.1f}' for x in r['times'])}), "
+                f"{B / t:.1f} clouds/s [{smi}]; peak memory "
+                f"{r['peak'] / 2**30:.2f} GiB; launches in 3 steps "
+                f"{r['counts']}; last metrics {r['metrics']}")
+    numels = train["auto"]["sr_numels"]
+    results["sr_bf16"] = check_sr_bf16(numels)
+    log(f"sr_bf16 casts of one mxsr supervised step: {len(numels)}, "
+        f"{sum(numels) / 1e6:.1f} M elements, the largest "
+        f"{max(numels) / 1e6:.1f} M")
+    log_kernels({"sr_bf16": results["sr_bf16"]}, smi)
+    top, share = train["f32"]["g_rows"]
     log(f"mean-shift backward cotangent g on the self-sup path: at most "
         f"{top} of {N} rows nonzero in a shape, {100 * share:.3f}% of rows "
         f"on average over its launches")
     tc = train_card_vs_cpu(entry)
-    log(f"card vs cpu train B=2: supervised loss {tc['loss'][0]:.7f} (card)"
-        f" {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), largest "
-        f"gradient error of the norm "
+    log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
+        f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
+        f"largest gradient error of the norm "
         f"{ {k: round(v, 6) for k, v in tc['grad_err'].items()} }; "
         f"self-sup ss_loss "
         f"{tc['ss_loss'][0]:.7f} / {tc['ss_loss'][1]:.7f}, chamfer "
         f"{tc['chamfer'][0]:.7f} / {tc['chamfer'][1]:.7f}")
+    mc = mxsr_train_card_vs_cpu(entry)
+    err, spread, name = mc["worst"]
+    log(f"card vs cpu train B=2 mxsr, same base key: supervised loss "
+        f"{mc['loss'][0]:.7f} (card) {mc['loss'][1]:.7f} (cpu), cpu spread "
+        f"under the input x (1 +- 2^-20, 2^-19) {mc['loss_spread']:.3g}; "
+        f"largest gradient error against its cpu spread: {err:.4f} of the "
+        f"norm ({name}; cpu spread there {spread:.4f}); medians over the "
+        f"parameters: card vs cpu {mc['medians'][0]:.4f}, cpu spread "
+        f"{mc['medians'][1]:.4f}, another key {mc['medians'][2]:.4f}")
     lg, lc, err, top, nc = convex_grad_card_vs_cpu()
     log(f"card vs cpu convex loss gradient, structured B=2 N={N}: "
         f"num_clusters {nc}, same center ids, loss {lg:.7f} / {lc:.7f}, "
         f"dLoss/dX max abs err {err:.3g} (largest entry {top:.3g})")
 
-    paths = {"eval_forward": counts,
-             "supervised_step": train["supervised"]["counts"],
-             "selfsup_step": train["selfsup"]["counts"]}
+    paths = {"eval_forward": counts}
+    for dt, tag in (("auto", "mxsr"), ("f32", "f32")):
+        paths[f"supervised_step_{tag}"] = train[dt]["supervised"]["counts"]
+        paths[f"selfsup_step_{tag}"] = train[dt]["selfsup"]["counts"]
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]
         rows.append(dict(
             name=name, route="cuda", source=k.source_path,
-            replaces=k.replaces,
+            replaces=k.replaces or SR_REPLACES, tpu_kernel=bool(k.replaces),
             launches=sum(c[name] for c in paths.values()),
             launches_by_path={p: c[name] for p, c in paths.items()},
             max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -4,8 +4,9 @@ primitive fit, and its two train steps.
 Mirrors ``__graft_entry__._flagship`` / ``entry`` and the programs that
 ``bench.py`` times: ``pointnet2_part_seg_msg`` with 50 parts, in eval
 mode, run with the convex self-sup loss against the input cloud itself;
-and, in train mode with the f32 encoder (``bench.py``'s secondary
-configuration), the supervised step and the self-sup step.  Weights are
+and, in train mode, the supervised step and the self-sup step, at the
+default encoder dtype (``"auto"`` = ``mxsr``, ``bench.py``'s headline
+train fields) or with the f32 encoder (its secondary ones).  Weights are
 random, made from a seed (lecun-normal kernels and zero biases, the JAX
 package's initializers; fresh batch-norm statistics).
 """
@@ -53,15 +54,19 @@ def flagship(batch: int, npoint: int, *, device=None):
     return model, points, cls
 
 
-def train_flagship(batch: int, npoint: int, *, device=None):
-    """``(state, points, cls, target)``: the flagship with the f32 encoder
-    in train mode, random weights from seed 0 and an Adam
+def train_flagship(batch: int, npoint: int, *, device=None,
+                   compute_dtype: str = "auto"):
+    """``(state, points, cls, target)``: the flagship with the encoder
+    dtype ``compute_dtype`` (the JAX package's default ``"auto"`` =
+    ``mxsr``; ``"f32"`` for the f32 encoder) in train mode, random weights
+    from seed 0 and an Adam
     :class:`~prifit_torch.train.state.TrainState`; a gaussian cloud
     ``[batch, npoint, 3]`` from seed 0 (the one :func:`flagship` makes),
     category 0, and random part labels ``[batch, npoint]`` from the same
     seed."""
     device = resolve_device(device)
-    model = get_model(num_parts=50, compute_dtype="f32", device="cpu")
+    model = get_model(num_parts=50, compute_dtype=compute_dtype,
+                      device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     state = create_train_state(model.to(device).train())
     rng = np.random.default_rng(0)

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("fps", "gather", "bandwidth", "mean_shift", "mean_shift_bwd",
-           "nms")
+           "nms", "max_bwd_cnt_gsm", "max_bwd_dz", "sr_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -124,6 +124,7 @@ def check_cuda(name: str, t, dtype=None, ndim=None, align: int = 16
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
+U32 = ctypes.c_uint
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 

@@ -10,8 +10,16 @@ forward.  Parameters and buffers carry the reference state_dict names, so
 ``strict=True``.
 
 Mode follows ``module.train()`` / ``module.eval()``.  Randomness (the
-training FPS start and dropout) comes only from an explicit
-``torch.Generator``; without one, FPS starts at index 0.
+training FPS start, dropout and the ``mxsr`` stochastic rounding) comes
+only from an explicit ``torch.Generator``; without one, FPS starts at
+index 0.
+
+Training with ``mxsr`` stages (the default ``"auto"``) takes one base key
+of two uint32 words per forward, ``sr_key`` or drawn from the generator,
+and gives the nine encoder regions ``fold_in(base, i)`` in forward call
+order: sa1's scales 0-2, sa2's scales 0-1, sa3, fp3, fp2, fp1.  The JAX
+package draws a fresh ``make_rng("sampling")`` per region instead, which
+torch cannot reproduce.
 """
 
 import torch
@@ -25,6 +33,7 @@ from prifit_torch.models.common import (
     nll_loss,
     stage_cfg,
 )
+from prifit_torch.nn.mixed import MXSR, fold_in
 from prifit_torch.nn.norm import BatchNorm
 from prifit_torch.nn.pointnet2 import (
     FeaturePropagation,
@@ -79,6 +88,21 @@ class get_model(nn.Module):
     def _head(self, x, conv):
         return dense(x, conv_weight(conv), conv.bias)
 
+    def _region_keys(self, generator, sr_key):
+        """The nine regions' stochastic-rounding keys, or Nones when no
+        stage trains in ``mxsr``."""
+        stages = (self.sa1, self.sa2, self.sa3, self.fp3, self.fp2, self.fp1)
+        if not (self.training and any(s.dtype == MXSR for s in stages)):
+            return [None] * 9
+        if sr_key is None:
+            if generator is None:
+                raise ValueError("training in mxsr needs a generator or an "
+                                 "sr_key for its stochastic rounding")
+            # the one read of the step's base key to the host
+            sr_key = torch.randint(0, 2 ** 32, (2,), generator=generator,
+                                   device=generator.device).tolist()
+        return [fold_in(sr_key, i) for i in range(9)]
+
     def forward(self, xyz: torch.Tensor, cls_label: torch.Tensor,
                 chamfer_points: torch.Tensor | None = None, *,
                 bn_momentum: float = 0.1,
@@ -87,32 +111,37 @@ class get_model(nn.Module):
                 max_num_clusters: int = 25, n_per_prim: int = 400,
                 num_bandwidth_candidates: int = 2, alpha: float = 1.0,
                 evaluation: bool = False, embed: bool = False,
-                generator: torch.Generator | None = None) -> SegOutput:
+                generator: torch.Generator | None = None,
+                sr_key=None) -> SegOutput:
         """``xyz [B, N, 3(+3)]`` channel-last, ``cls_label [B, 16]``
-        one-hot."""
+        one-hot; ``sr_key`` the ``mxsr`` base key (two uint32 words),
+        drawn from ``generator`` when None."""
         B, N, _ = xyz.shape
         q = self.quant
+        keys = self._region_keys(generator, sr_key)
         l0_points = xyz
         l0_xyz = xyz[..., :3]
 
         l1_xyz, l1_points = self.sa1(l0_xyz, l0_points, bn_momentum,
-                                     generator)
+                                     generator, keys[0:3])
         l1_points = maybe_quant(l1_points, q["sa1"])
         l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, bn_momentum,
-                                     generator)
+                                     generator, keys[3:5])
         l2_points = maybe_quant(l2_points, q["sa2"])
-        l3_xyz, l3_points = self.sa3(l2_xyz, l2_points, bn_momentum)
+        l3_xyz, l3_points = self.sa3(l2_xyz, l2_points, bn_momentum, keys[5])
         l3_points = maybe_quant(l3_points, q["sa3"])
 
         l2_points = maybe_quant(self.fp3(l2_xyz, l3_xyz, l2_points,
-                                         l3_points, bn_momentum), q["fp3"])
+                                         l3_points, bn_momentum, keys[6]),
+                                q["fp3"])
         l1_points = maybe_quant(self.fp2(l1_xyz, l2_xyz, l1_points,
-                                         l2_points, bn_momentum), q["fp2"])
+                                         l2_points, bn_momentum, keys[7]),
+                                q["fp2"])
         cls_onehot = cls_label[:, None, :].expand(B, N, cls_label.shape[-1])
         skip = torch.cat([cls_onehot.float(), l0_xyz.float(),
                           l0_points.float()], dim=-1)
         l0_points = maybe_quant(self.fp1(l0_xyz, l1_xyz, skip, l1_points,
-                                         bn_momentum), q["fp1"])
+                                         bn_momentum, keys[8]), q["fp1"])
 
         # everything from the head on runs f32
         l0_points = l0_points.float()

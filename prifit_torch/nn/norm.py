@@ -33,11 +33,16 @@ class BatchNorm(nn.Module):
             mean = torch.mean(x32, dim=dims)
             mean2 = torch.mean(x32 * x32, dim=dims)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            n = x.numel() // x.shape[-1]
-            with torch.no_grad():
-                unbiased = var * (n / max(n - 1.0, 1.0))
-                self.running_mean.mul_(1.0 - momentum).add_(momentum * mean)
-                self.running_var.mul_(1.0 - momentum).add_(
-                    momentum * unbiased)
+            self.update_running(mean, var, momentum, x.numel() // x.shape[-1])
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                       momentum: float, n: int) -> None:
+        """Running update from batch statistics over ``n`` rows (also
+        those a mixed-precision region computed), tracking the unbiased
+        variance."""
+        unbiased = var * (n / max(n - 1.0, 1.0))
+        self.running_mean.mul_(1.0 - momentum).add_(momentum * mean)
+        self.running_var.mul_(1.0 - momentum).add_(momentum * unbiased)

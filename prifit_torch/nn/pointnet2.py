@@ -12,13 +12,18 @@ run time into ``w_feat`` and ``w_xyz``.
 Compute dtype (``dtype`` below): None runs f32; ``torch.bfloat16`` casts
 each dense layer's input and parameters to bf16; ``FQ`` rounds matmul
 inputs/outputs and BN outputs to bf16 straight-through; ``MX``/``MXSR``
-run as bf16 in eval mode.  Their training region (``nn/mixed.py`` in the
-JAX package) is not ported yet, so training in those modes raises.
+run as bf16 in eval mode and, in training, each SA scale, the group-all
+chain and each FP chain as one mixed-precision region
+(:func:`prifit_torch.nn.mixed.mx_chain`).  ``MXSR`` regions round their
+cotangents stochastically, with a key per region (``sr_key`` below: two
+uint32 words), which training in that mode requires (``mx_chain`` raises
+without one).
 """
 
 import torch
 from torch import nn
 
+from prifit_torch.nn.mixed import MX, MXSR, mx_chain
 from prifit_torch.nn.norm import BatchNorm
 from prifit_torch.ops.sampling import (
     ball_query_nearest_shared,
@@ -31,8 +36,6 @@ from prifit_torch.ops.sampling import (
 )
 
 FQ = "fq"
-MX = "mx"
-MXSR = "mxsr"
 
 
 def stq(x: torch.Tensor) -> torch.Tensor:
@@ -52,18 +55,32 @@ def cast(x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def eff(dtype):
-    """``MX``/``MXSR`` are bf16 outside their training region."""
+    """Array dtype of the explicit chain: ``MX``/``MXSR`` are bf16 outside
+    their training region."""
     return torch.bfloat16 if dtype in (MX, MXSR) else dtype
 
 
-def run_dtype(dtype, train: bool):
-    """Array dtype of the explicit chain (``_run_dtype`` in the JAX
-    package, single replica)."""
-    if dtype in (MX, MXSR) and train:
-        raise NotImplementedError(
-            f"training with compute dtype {dtype!r} needs the mixed "
-            "precision region, which the port does not have yet")
-    return eff(dtype)
+def region(dtype, x, pre_bn, convs, bns, has_max: bool, bn_momentum: float,
+           sr_key):
+    """``x`` through the mixed-precision region of ``dtype`` (``MX`` or
+    ``MXSR``): an optional batch norm ``pre_bn`` on ``x`` itself, the
+    [dense -> BN -> relu] chain of ``convs``/``bns``, and with ``has_max``
+    the max over axis -2 of ``x [B, S, K, F]``.  ``x`` enters as bf16
+    under ``MXSR`` (its cotangent leaves bf16 too), as f32 under ``MX``.
+    Updates the running statistics of every batch norm from the region's
+    rows."""
+    sr = dtype == MXSR
+    chain = tuple((conv_weight(c), c.bias, bn.weight, bn.bias)
+                  for c, bn in zip(convs, bns))
+    out, stats = mx_chain(
+        (pre_bn is not None, has_max, sr),
+        x.to(torch.bfloat16 if sr else torch.float32),
+        (None if pre_bn is None else (pre_bn.weight, pre_bn.bias), chain),
+        sr_key)
+    norms = ([] if pre_bn is None else [pre_bn]) + list(bns)
+    for bn, (mean, var) in zip(norms, stats):
+        bn.update_running(mean, var, bn_momentum, x.numel() // x.shape[-1])
+    return out
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -91,11 +108,11 @@ def conv_weight(conv: nn.Module) -> torch.Tensor:
     return conv.weight.reshape(conv.weight.shape[0], conv.weight.shape[1])
 
 
-def point_mlp(convs, bns, x: torch.Tensor, dtype, train: bool,
+def point_mlp(convs, bns, x: torch.Tensor, dtype,
               bn_momentum: float) -> torch.Tensor:
     """Shared per-point MLP: [dense -> BN -> relu] per layer (the explicit
     chain of ``PointMLP`` in the JAX package)."""
-    dt = run_dtype(dtype, train)
+    dt = eff(dtype)
     for conv, bn in zip(convs, bns):
         x = dense(x, conv_weight(conv), conv.bias,
                   dt if dtype != FQ else dtype)
@@ -136,11 +153,11 @@ def gfl_pre_tensor(conv, d_in: int, xyz, points, new_xyz, idx):
 
 
 def grouped_first_layer(conv, bn, d_in: int, xyz, points, new_xyz, idx,
-                        dtype, train: bool, bn_momentum: float):
+                        dtype, bn_momentum: float):
     """``[B, S, K, F]`` post-BN, post-relu output of the grouped first
     layer, cast to the chain's dtype."""
     grouped = gfl_pre_tensor(conv, d_in, xyz, points, new_xyz, idx)
-    grouped = cast(grouped, run_dtype(dtype, train))
+    grouped = cast(grouped, eff(dtype))
     grouped = bn(grouped, bn_momentum)
     if dtype == FQ:
         grouped = stq(grouped)
@@ -187,10 +204,10 @@ class SetAbstractionMsg(nn.Module):
             self.bn_blocks.append(bns)
 
     def forward(self, xyz, points, bn_momentum: float = 0.1,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, sr_keys=None):
         """xyz ``[B, N, 3]``, points ``[B, N, d_in]`` -> (new_xyz
         ``[B, npoint, 3]``, new_points ``[B, npoint, sum of last
-        widths]``)."""
+        widths]``).  ``sr_keys``: one ``MXSR`` key per scale."""
         train = self.training
         fps_idx = farthest_point_sample(xyz, self.npoint,
                                         fps_start(xyz, train, generator))
@@ -203,13 +220,19 @@ class SetAbstractionMsg(nn.Module):
                         for r, k in zip(self.radius_list,
                                         self.nsample_list)]
         outs = []
-        for idx, convs, bns in zip(idx_list, self.conv_blocks,
-                                   self.bn_blocks):
+        for i, (idx, convs, bns) in enumerate(zip(
+                idx_list, self.conv_blocks, self.bn_blocks)):
+            if train and self.dtype in (MX, MXSR):
+                pre = gfl_pre_tensor(convs[0], self.d_in, xyz, points,
+                                     new_xyz, idx)
+                outs.append(region(self.dtype, pre, bns[0], convs[1:],
+                                   bns[1:], True, bn_momentum,
+                                   None if sr_keys is None else sr_keys[i]))
+                continue
             h = grouped_first_layer(convs[0], bns[0], self.d_in, xyz,
                                     points, new_xyz, idx, self.dtype,
-                                    train, bn_momentum)
-            h = point_mlp(convs[1:], bns[1:], h, self.dtype, train,
-                          bn_momentum)
+                                    bn_momentum)
+            h = point_mlp(convs[1:], bns[1:], h, self.dtype, bn_momentum)
             outs.append(torch.amax(h, dim=-2))
         return new_xyz, torch.cat(outs, dim=-1)
 
@@ -230,10 +253,13 @@ class SetAbstractionAll(nn.Module):
             self.mlp_bns.append(BatchNorm(out))
             last = out
 
-    def forward(self, xyz, points, bn_momentum: float = 0.1):
+    def forward(self, xyz, points, bn_momentum: float = 0.1, sr_key=None):
         new_xyz, grouped = sample_and_group_all(xyz, points)
+        if self.training and self.dtype in (MX, MXSR):
+            return new_xyz, region(self.dtype, grouped, None, self.mlp_convs,
+                                   self.mlp_bns, True, bn_momentum, sr_key)
         out = point_mlp(self.mlp_convs, self.mlp_bns, grouped, self.dtype,
-                        self.training, bn_momentum)
+                        bn_momentum)
         return new_xyz, torch.amax(out, dim=2)
 
 
@@ -252,7 +278,7 @@ class FeaturePropagation(nn.Module):
             last = out
 
     def forward(self, xyz1, xyz2, points1, points2,
-                bn_momentum: float = 0.1):
+                bn_momentum: float = 0.1, sr_key=None):
         """xyz1 ``[B, N, 3]`` dense, xyz2 ``[B, S, 3]`` coarse, points1
         ``[B, N, D1]`` skip or None, points2 ``[B, S, D2]``."""
         interpolated = three_nn_interpolate(xyz1, xyz2, points2)
@@ -262,7 +288,10 @@ class FeaturePropagation(nn.Module):
             x = torch.cat([points1, interpolated.to(points1.dtype)], dim=-1)
         else:
             x = interpolated
-        if len(self.mlp_convs):
+        if len(self.mlp_convs) and self.training and self.dtype in (MX, MXSR):
+            x = region(self.dtype, x, None, self.mlp_convs, self.mlp_bns,
+                       False, bn_momentum, sr_key)
+        elif len(self.mlp_convs):
             x = point_mlp(self.mlp_convs, self.mlp_bns, x, self.dtype,
-                          self.training, bn_momentum)
+                          bn_momentum)
         return x

@@ -21,8 +21,9 @@ power limit, then for one eval forward (``entry.flagship``, default dtype):
   2. the device's busy and idle share of the forward's wall time;
   3. device time by kernel, the largest first.
 
-Then the same for one self-sup train step (``entry.train_flagship``, f32
-encoder, bench settings) after a warm-up step: the stage table of its
+Then the same for one self-sup train step (``entry.train_flagship`` at the
+default encoder dtype, ``"auto"`` = ``mxsr``, bench settings) after a
+warm-up step: the stage table of its
 forward (the ``train_forward`` range of ``train/steps.py``), the busy and
 idle share, and its backward by kernel: the device kernels that start
 after the forward's device span ends and before the optimizer's
@@ -230,7 +231,8 @@ def main():
                                                                    run)
     busy = sum(r[1] for r in kernels) / 1e3
     bwd = sum(r[1] for r in backward) / 1e3
-    print("== self-sup train step (f32 encoder), forward stages")
+    print("== self-sup train step (default encoder dtype, mxsr), forward "
+          "stages")
     _print_stages(stages, busy)
     print(f"profiled step: wall {wall * 1e3:.3f} ms, device busy "
           f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "

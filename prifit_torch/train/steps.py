@@ -7,8 +7,13 @@ new state, it updates the state's model (parameters, batch-norm running
 statistics, the self-sup ``beta`` buffer) and optimizer IN PLACE and
 returns the same state with its step count advanced.
 
-Randomness (the FPS start and dropout) comes from the ``generator``
-argument; without one FPS starts at index 0, and dropout needs one.  The
+Randomness (the FPS start, dropout and, with ``mxsr`` stages, the
+stochastic rounding) comes from the ``generator`` argument; without one
+FPS starts at index 0, and dropout and ``mxsr`` need one.  An ``mxsr``
+step draws one base key of two uint32 words from the generator and reads
+it to the host, once per step (the model's forward does, see
+:mod:`prifit_torch.models.pointnet2_part_seg_msg`); ``sr_key`` gives that
+key instead, for runs that must draw the same bits.  The
 forward and the update are profiler ranges of their own names (read by
 :mod:`prifit_torch.profile_forward`, which finds the backward's kernels
 between them).
@@ -47,17 +52,18 @@ def make_supervised_step(model_loss: Callable,
                          fused_augment: bool = False) -> Callable:
     """``model_loss(seg_logits, target, trans_feat) -> scalar`` (the model
     module's ``get_loss``) -> ``step(state, points, cls_onehot, target,
-    lr, bn_momentum, generator=None) -> (state, {loss, acc})``, updating
-    ``state`` in place."""
+    lr, bn_momentum, generator=None, sr_key=None) -> (state, {loss,
+    acc})``, updating ``state`` in place."""
     _no_fused_augment(fused_augment)
 
     def step(state: TrainState, points, cls_onehot, target, lr: float,
-             bn_momentum: float, generator: torch.Generator | None = None):
+             bn_momentum: float, generator: torch.Generator | None = None,
+             sr_key=None):
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         with record_function("train_forward"):
             out = model(points, cls_onehot, bn_momentum=bn_momentum,
-                        generator=generator)
+                        generator=generator, sr_key=sr_key)
             loss = model_loss(out.seg_logits, target, out.trans_feat)
         loss.backward()
         _apply_gradients(state, lr)
@@ -73,7 +79,8 @@ def make_selfsup_step(*, fused_augment: bool = False,
     """``convex_kwargs``: the model's convex-loss arguments (quantile,
     msc_iterations, max_num_clusters, n_per_prim, ...) ->
     ``step(state, points, cls_onehot, chamfer_points, lr, bn_momentum,
-    lmbda, generator=None) -> (state, {ss_loss, chamfer_loss})`` with
+    lmbda, generator=None, sr_key=None) -> (state, {ss_loss,
+    chamfer_loss})`` with
     ``ss_loss = mean(total_loss) * lmbda``, updating ``state`` in
     place."""
     _no_fused_augment(fused_augment)
@@ -81,13 +88,13 @@ def make_selfsup_step(*, fused_augment: bool = False,
 
     def step(state: TrainState, points, cls_onehot, chamfer_points,
              lr: float, bn_momentum: float, lmbda: float,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None, sr_key=None):
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         with record_function("train_forward"):
             out = model(points, cls_onehot, chamfer_points=chamfer_points,
                         bn_momentum=bn_momentum, generator=generator,
-                        **kwargs)
+                        sr_key=sr_key, **kwargs)
             ss_loss = torch.mean(out.total_loss) * lmbda
         ss_loss.backward()
         _apply_gradients(state, lr)

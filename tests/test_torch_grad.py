@@ -2,8 +2,8 @@
 the CPU: the mean-shift step's closed-form backward (the plain version of
 the backward kernel), the guarded eigh, the gather's scatter-add
 transpose, the optimizers and schedules, and the structured convex loss.
-Also: training under the ``mx``/``mxsr``/``auto`` dtypes and the fused
-augment still raise."""
+Also: training under the ``mx``/``mxsr``/``auto`` dtypes runs, and the
+fused augment still raises."""
 
 import jax
 import jax.numpy as jnp
@@ -238,18 +238,35 @@ def test_schedules_match():
 
 
 @pytest.mark.parametrize("compute_dtype", ["mxsr", "auto", "mx"])
-def test_training_in_mixed_dtypes_raises(compute_dtype):
+def test_training_in_mixed_dtypes_runs(compute_dtype):
+    """A supervised step in each mixed dtype trains through the region:
+    finite loss and gradients, a nonzero gradient for every parameter
+    but the biases whose gradient is analytically 0 (a batch norm
+    follows them) and the self-sup embedding head, which the supervised
+    loss does not reach, and running statistics moved in every batch
+    norm.  ``mxsr`` and
+    ``auto`` draw their rounding key from the generator."""
+    from test_torch_train import _zero_grad_bias   # it imports this file
     model = get_model(num_parts=50, compute_dtype=compute_dtype,
                       device="cpu")
     state = TrainState(model=model,
                        optimizer=make_optimizer(model.parameters()))
+    before = {n: b.clone() for n, b in model.named_buffers()
+              if n.endswith(("running_mean", "running_var"))}
     rng = np.random.default_rng(4)
     pts = torch.from_numpy(rng.normal(size=(1, 512, 3)).astype(np.float32))
     cls = torch.zeros((1, 16))
     step = make_supervised_step(get_loss)
-    with pytest.raises(NotImplementedError, match="mixed precision"):
-        step(state, pts, cls, torch.zeros((1, 512), dtype=torch.long),
-             1e-3, 0.1)
+    _, metrics = step(state, pts, cls,
+                      torch.zeros((1, 512), dtype=torch.long), 1e-3, 0.1,
+                      torch.Generator().manual_seed(0))
+    assert torch.isfinite(metrics["loss"])
+    for name, p in model.named_parameters():
+        assert torch.isfinite(p.grad).all(), name
+        if not (_zero_grad_bias(name) or name.startswith("extra_conv_emb")):
+            assert bool(p.grad.any()), name
+    for name, b in before.items():
+        assert not torch.equal(model.get_buffer(name), b), name
 
 
 def test_fused_augment_raises():
@@ -355,6 +372,10 @@ def test_train_flagship_needs_a_device_unless_cpu_asked(monkeypatch):
     assert state.optimizer.defaults["weight_decay"] == 1e-4
     assert points.shape == (1, 512, 3) and cls.shape == (1, 16)
     assert target.shape == (1, 512) and int(target.max()) < 50
-    # the f32 encoder: no stage has a compute dtype
-    assert all(getattr(state.model, s).dtype is None
-               for s in ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1"))
+    # the default encoder dtype ("auto" = mxsr) in every stage; the f32
+    # encoder on request
+    stages = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
+    assert all(getattr(state.model, s).dtype == "mxsr" for s in stages)
+    state, *_ = entry.train_flagship(1, 512, device="cpu",
+                                     compute_dtype="f32")
+    assert all(getattr(state.model, s).dtype is None for s in stages)

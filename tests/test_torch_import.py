@@ -14,8 +14,10 @@ import prifit_torch.entry
 from prifit_torch.kernels.bandwidth import kth_nn_distance
 from prifit_torch.kernels.fps import farthest_point_sample
 from prifit_torch.kernels.gather import gather_rows
+from prifit_torch.kernels.max_bwd import cnt_gsm, dz
 from prifit_torch.kernels.mean_shift import mean_shift_step
 from prifit_torch.kernels.nms import nms_passes
+from prifit_torch.kernels.stochastic_round import sr_bf16
 from prifit_torch.models.pointnet2_part_seg_msg import get_model
 
 torch.set_num_threads(1)
@@ -76,12 +78,19 @@ def test_kernel_wrappers_never_fall_back():
     x = torch.empty(2, 256, 3, **meta)
     X = torch.empty(2, 256, 128, **meta)
     bw = torch.empty(2, **meta)
+    z = torch.empty(64, 32, dtype=torch.bfloat16, **meta)
+    rows = torch.empty(8, 32, dtype=torch.bfloat16, **meta)
+    vec = torch.empty(32, **meta)
+    key = (1, 2)
     calls = [
         lambda: farthest_point_sample(x, 16, torch.zeros(2, **meta)),
         lambda: gather_rows(x, torch.zeros(2, 5, dtype=torch.long, **meta)),
         lambda: kth_nn_distance(X, [3]),
         lambda: mean_shift_step(X, X, bw),
         lambda: nms_passes(X, bw),
+        lambda: cnt_gsm(z, rows, rows, rows, key),
+        lambda: dz(z, rows, rows, vec, vec, vec, vec, key),
+        lambda: sr_bf16(key, X),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
