@@ -6,12 +6,15 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds every hand-written kernel from ``prifit_torch/kernels/csrc``,
 holds each against its plain PyTorch version at the shapes the main paths
 give it (and times both, with a one-call PyTorch yardstick where one
-exists): FPS, gather, bandwidth, the mean-shift forward and backward and
-NMS; the K-max backward pair (``max_bwd_cnt_gsm``, ``max_bwd_dz``) at the
-six K-max regions' shapes with stochastic rounding on and off, bit for
-bit; and the ``sr_bf16`` cast at the sizes one ``mxsr`` step casts, bit
-for bit.  It drives the port's main paths through ``prifit_torch.entry``,
-each with the launch counts set to 0 just before it and read just after:
+exists): FPS, gather, bandwidth, the mean-shift forward (for q = X and
+for q one step from X) and backward (for a dense cotangent, for 1 and 25
+live rows a shape, against the plain version evaluated in float64, and
+for a zero cotangent) and NMS; the K-max backward pair
+(``max_bwd_cnt_gsm``, ``max_bwd_dz``) at the six K-max regions' shapes
+with stochastic rounding on and off, bit for bit; and the ``sr_bf16``
+cast at the sizes one ``mxsr`` step casts, bit for bit.  It drives the
+port's main paths through ``prifit_torch.entry``, each with the launch
+counts set to 0 just before it and read just after:
 
   - the flagship eval forward with primitive fit at B=24, N=2048;
   - the two train steps at B=24, N=2048 at the default encoder dtype
@@ -37,7 +40,8 @@ convex loss in the embeddings on structured embeddings.  It prints:
     and the times of the calls one forward or one step makes (kernel,
     plain version, library call) beside the least time the card could
     take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
-    false);
+    false); the mean-shift backward's row also has, under ``sparse``, the
+    same numbers for cotangents live in 1 and in 25 rows a shape;
   - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
@@ -56,9 +60,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores
-# and HBM3 bandwidth; the bounds below are computed against these.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
+# dense TF32 on the tensor cores, and HBM3 bandwidth; the bounds below are
+# computed against these.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 B, N = 24, 2048
@@ -84,9 +90,13 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, tf32_flops=0):
+    """The least time for the work: ``nbytes`` at the memory rate against
+    ``nops`` f32 operations at the f32 rate plus ``tf32_flops`` tensor-core
+    flops at the TF32 rate (a 3xTF32 product counts three times).
+    Returns ``(ms, "bytes" or "operations")``."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = nops / PEAK_F32_FLOPS * 1e3
+    t_ops = (nops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
@@ -194,17 +204,26 @@ def check_bandwidth(X):
 
 
 def check_mean_shift(X, bw):
+    """The forward kernel against its plain version for q = X (the first
+    step) and for q one normalized step away from X (steps 2-10): m within
+    1e-4 absolute, s within 1e-4 relative (f32 sums over 2048 columns in
+    another order, 3xTF32 products, and the exponent rounded differently:
+    (sim - 1) / b^2 against -(2 - 2 sim) / b^2 / 2).  Times the 10 launches
+    of one forward; the yardstick is f32 SDPA on the same inputs."""
     from prifit_torch.kernels import mean_shift
     bw2 = (bw ** 2).contiguous()
-    m, s = mean_shift.mean_shift_step(X, X, bw2)
-    mr, sr = mean_shift.mean_shift_step_plain(X, X, bw2)
-    err = (m - mr).abs().max().item()
-    serr = ((s - sr).abs() / sr).max().item()
-    # f32 sums over 2048 columns in another order; the exponent rounded
-    # differently ((sim - 1) / b^2 vs -(2 - 2 sim) / b^2 / 2)
-    if not (err <= 1e-4 and serr <= 1e-4):
-        raise AssertionError(f"mean_shift max abs err {err}, s rel err "
-                             f"{serr}")
+    m, _ = mean_shift.mean_shift_step(X, X, bw2)
+    q1 = (m / torch.linalg.norm(m, dim=-1, keepdim=True)).contiguous()
+    err = 0.0
+    for q in (X, q1):
+        m, s = mean_shift.mean_shift_step(q, X, bw2)
+        mr, sr = mean_shift.mean_shift_step_plain(q, X, bw2)
+        e = (m - mr).abs().max().item()
+        serr = ((s - sr).abs() / sr).max().item()
+        if not (e <= 1e-4 and serr <= 1e-4):
+            raise AssertionError(f"mean_shift max abs err {e}, s rel err "
+                                 f"{serr} (q {'=' if q is X else '!='} X)")
+        err = max(err, e)
     steps = 10
     ms = cuda_ms(lambda: [mean_shift.mean_shift_step(X, X, bw2)
                           for _ in range(steps)], reps=3)
@@ -217,43 +236,110 @@ def check_mean_shift(X, bw):
         torch.nn.functional.scaled_dot_product_attention(q4, x4, x4,
                                                          scale=1.0)
         for _ in range(steps)], reps=3)
-    ops = steps * 4 * B * N * N * 128
+    # two products of 2 n^2 D flops in 3xTF32, and n^2 exponentials
+    tf32 = steps * 3 * 4 * B * N * N * 128
     byt = steps * (2 * nbytes(X) + nbytes(bw2) + nbytes(m) + nbytes(s))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound=bound_ms(byt, ops))
+                library_ms=library_ms,
+                bound=bound_ms(byt, steps * B * N * N, tf32))
+
+
+def sparse_cotangent(gen, k):
+    """A ``[B, N, 128]`` cotangent with ``k`` live (nonzero) rows per
+    shape at random ids spread over the N rows, as the self-sup path gives
+    the mean-shift backward (at most 25 live rows: the centers)."""
+    g = torch.zeros((B, N, 128))
+    for b in range(B):
+        rows = torch.randperm(N, generator=gen)[:k]
+        g[b, rows] = torch.randn((k, 128), generator=gen)
+    return g.cuda()
+
+
+def bwd_plain_err(got, X, b2, m, s, g):
+    """The largest ``|got - plain|`` over dq and dX, with the plain version
+    evaluated in float64 on the same f32 inputs; its largest entry; the
+    same error of the plain version evaluated in f32; and the largest
+    ``|got - plain|`` against that f32 evaluation."""
+    from prifit_torch.kernels import mean_shift
+    ref = mean_shift.mean_shift_step_bwd_plain(
+        *(t.double() for t in (X, X, b2, m, s, g)))
+    f32 = mean_shift.mean_shift_step_bwd_plain(X, X, b2, m, s, g)
+
+    def diff(a, b):
+        return max((u.double() - v.double()).abs().max().item()
+                   for u, v in zip(a, b))
+
+    top = max(r.abs().max().item() for r in ref)
+    return diff(got, ref), top, diff(f32, ref), diff(got, f32)
 
 
 def check_mean_shift_bwd(X, bw):
     """The backward kernel against its plain version for a dense random
-    cotangent, at the path's bandwidth and at one 50 times smaller (most
-    exponents clamp at -13 there: the gradient cutoff), within 1e-4 of the
-    largest gradient entry: f32 sums over 2048 rows in another order, and
-    the exponent rounded differently.  Times the 10 launches of one
-    self-sup step; the yardstick is the backward of f32 attention on the
-    same inputs."""
+    cotangent and for cotangents live in 1 and in 25 rows per shape, at the
+    path's bandwidth and at one 50 times smaller (most exponents clamp at
+    -13 there: the gradient cutoff), within 1e-4 of the largest gradient
+    entry: f32 sums over 2048 rows in another order, 3xTF32 products, and
+    the exponent rounded differently.  The plain version is evaluated in
+    float64 on the same inputs: at the smaller bandwidth, where every
+    kernel value and t_ij is up to 1 / b^2 ~ 250 times the gradient it
+    sums to, its own f32 evaluation is 0.7-0.9e-4 of the largest entry off
+    that (logged here), so it could not tell the kernel's error from its
+    own.  An all-zero cotangent must give exact zeros.  Times the 10
+    launches of one self-sup step for each cotangent; the yardstick for the
+    dense one is the backward of f32 attention on the same inputs."""
     from prifit_torch.kernels import mean_shift
     bw2 = (bw ** 2).contiguous()
-    g = torch.randn((B, N, 128), generator=torch.Generator().manual_seed(6)
-                    ).cuda()
-    err = None
+    gen = torch.Generator().manual_seed(6)
+    g = torch.randn((B, N, 128), generator=gen).cuda()
+    sparse = {k: sparse_cotangent(gen, k) for k in (1, 25)}
+    err = {}  # at the path's bandwidth, by live rows a shape
     for shrink in (1.0, 0.02):
         b2 = (bw2 * shrink).contiguous()
         m, s = mean_shift.mean_shift_step_fwd(X, X, b2)
-        got = mean_shift.mean_shift_step_bwd(X, X, b2, m, s, g)
-        ref = mean_shift.mean_shift_step_bwd_plain(X, X, b2, m, s, g)
-        top = max(r.abs().max().item() for r in ref)
-        e = max((a - r).abs().max().item() for a, r in zip(got, ref))
-        if not e <= 1e-4 * top:
-            raise AssertionError(f"mean_shift_bwd max abs err {e} at "
-                                 f"bw2 x {shrink} (largest entry {top})")
-        err = e if err is None else err
+        for live, gg in [(N, g)] + list(sparse.items()):
+            got = mean_shift.mean_shift_step_bwd(X, X, b2, m, s, gg)
+            e, top, own, e32 = bwd_plain_err(got, X, b2, m, s, gg)
+            log(f"  mean_shift_bwd bw2 x {shrink}, {live} live rows a shape: "
+                f"max abs err {e:.3g} of the largest entry {top:.4g} "
+                f"({e / top:.3g}); the plain version in f32 {own:.3g} "
+                f"({own / top:.3g}); kernel against that {e32:.3g} "
+                f"({e32 / top:.3g})")
+            if not e <= 1e-4 * top:
+                raise AssertionError(
+                    f"mean_shift_bwd max abs err {e} at bw2 x {shrink}, "
+                    f"{live} live rows a shape (largest entry {top})")
+            err.setdefault(live, e)
+        zero = mean_shift.mean_shift_step_bwd(X, X, b2, m, s,
+                                              torch.zeros_like(g))
+        if any(bool(t.any()) for t in zero):
+            raise AssertionError(f"mean_shift_bwd of a zero cotangent is "
+                                 f"not zero at bw2 x {shrink}")
     m, s = mean_shift.mean_shift_step_fwd(X, X, bw2)
     steps = 10
-    ms = cuda_ms(lambda: [mean_shift.mean_shift_step_bwd(X, X, bw2, m, s, g)
-                          for _ in range(steps)], reps=3)
-    plain_ms = cuda_ms(lambda: [
-        mean_shift.mean_shift_step_bwd_plain(X, X, bw2, m, s, g)
-        for _ in range(steps)], reps=2, warmup=1)
+
+    def timed(gg, plain_reps):
+        ms = cuda_ms(lambda: [
+            mean_shift.mean_shift_step_bwd(X, X, bw2, m, s, gg)
+            for _ in range(steps)], reps=3)
+        plain_ms = cuda_ms(lambda: [
+            mean_shift.mean_shift_step_bwd_plain(X, X, bw2, m, s, gg)
+            for _ in range(steps)], reps=plain_reps, warmup=1)
+        return ms, plain_ms
+
+    rows = []
+    for k, gg in sparse.items():
+        k_ms, k_plain = timed(gg, 2)
+        # what these live rows need: 10 count n D flops in 3xTF32 and
+        # count n exponentials; x and g read, q, m and s read at the live
+        # rows, dq and dx written
+        live = B * k
+        byt = steps * (4 * nbytes(X) + live * (2 * 128 + 1) * 4
+                       + nbytes(bw2))
+        bnd = bound_ms(byt, steps * live * N, steps * 3 * 10 * live * N * 128)
+        rows.append(dict(live_rows=k, max_abs_err=err[k], ms=k_ms,
+                         plain_ms=k_plain, bound_ms=bnd[0],
+                         bound_by=bnd[1]))
+    ms, plain_ms = timed(g, 2)
     q4 = (X / bw2[:, None, None])[:, None].requires_grad_()
     k4 = X[:, None].clone().requires_grad_()
     v4 = X[:, None].clone().requires_grad_()
@@ -262,12 +348,13 @@ def check_mean_shift_bwd(X, bw):
     library_ms = cuda_ms(lambda: [
         torch.autograd.grad(out, (q4, k4, v4), g[:, None], retain_graph=True)
         for _ in range(steps)], reps=3)
-    # 10 n^2 D flops a shape and launch: the two forward products and the
-    # three backward ones
-    ops = steps * 10 * B * N * N * 128
+    # 10 n^2 D flops a shape and launch in 3xTF32 (the two forward products
+    # and the three backward ones) and n^2 exponentials
+    tf32 = steps * 3 * 10 * B * N * N * 128
     byt = steps * (4 * nbytes(X) + nbytes(bw2) + nbytes(s) + 2 * nbytes(X))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound=bound_ms(byt, ops))
+    return dict(max_abs_err=err[N], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                bound=bound_ms(byt, steps * B * N * N, tf32), sparse=rows)
 
 
 def check_nms():
@@ -970,6 +1057,12 @@ def log_kernels(results, smi):
             f"{r['library_ms']} bound_ms {r['bound'][0]:.4f} "
             f"({r['bound'][1]}) [calls of "
             f"{CALLS_OF.get(name, 'one forward')}, {smi}]")
+        for sp in r.get("sparse", ()):
+            log(f"  {name}, {sp['live_rows']} live rows a shape: max_abs_err "
+                f"{sp['max_abs_err']:.3g} kernel_ms {sp['ms']:.4f} plain_ms "
+                f"{sp['plain_ms']:.4f} bound_ms {sp['bound_ms']:.4f} "
+                f"({sp['bound_by']}); {r['ms'] / sp['ms']:.1f}x faster than "
+                f"dense")
 
 
 def main():
@@ -1079,7 +1172,8 @@ def main():
             launches_by_path={p: c[name] for p, c in paths.items()},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"]))
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            **({"sparse": r["sparse"]} if "sparse" in r else {})))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,6 +81,26 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def ptxas_report(names=SOURCES) -> str:
+    """Compile ``csrc/<name>.cu`` for each of ``names`` with ``-Xptxas -v``
+    into a temporary directory and return ptxas's lines per kernel:
+    registers, spills, shared memory."""
+    import tempfile
+
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            res = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+                 "-o", str(Path(tmp) / f"{name}.so"),
+                 str(CSRC / f"{name}.cu")],
+                capture_output=True, text=True, check=True)
+            lines = [ln.strip() for ln in (res.stdout + res.stderr)
+                     .splitlines() if "ptxas" in ln or "spill" in ln]
+            out.append(f"--- {name}.cu\n" + "\n".join(lines))
+    return "\n".join(out)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building first if
     needed."""
@@ -158,3 +178,11 @@ class Kernel:
             raise RuntimeError(f"{self.name}: {entry} failed to launch: "
                                f"CUDA error {err} ({msg})")
         self.launches += 1
+
+
+if __name__ == "__main__":
+    # python -m prifit_torch.kernels.build [name ...]: ptxas's registers,
+    # spills and shared memory of each kernel (all sources by default)
+    import sys
+
+    print(ptxas_report(sys.argv[1:] or SOURCES))

@@ -1,4 +1,5 @@
-// One Gaussian mean-shift step, flash-style: nothing [n, n] is stored.
+// One Gaussian mean-shift step, flash-style on the tensor cores: nothing
+// [n, n] is stored.
 //
 //   K_ij = exp(clip((<q_i, x_j> - 1) / b^2, -13, 75))
 //   s_i  = sum_j K_ij,   m_i = (sum_j K_ij x_j) * (1 / s_i)
@@ -6,110 +7,137 @@
 // Replaces the forward TPU kernel prifit_tpu/ops/pallas/mean_shift.py::
 // _fwd_kernel (_pallas_fwd, reached through mean_shift_step_pallas).  The
 // renormalization of m stays outside, in PyTorch, as in the JAX package.
-// Unlike the TPU kernel (bf16 operands), both products are full f32.
 //
-// Bound on the H100: operations, 4 n^2 D flops per shape (two products) at
-// the f32 rate, plus n^2 exponentials.  A block owns 32 query rows of one
-// shape and walks over X in 32-row tiles staged in shared memory.  Each warp
-// computes the 4 x 32 kernel values of its own 4 rows, keeps them in shared
-// memory for itself only (no block barrier between the two products), then
-// accumulates its 4 rows x 128 columns of K X in registers, 16 a thread.
-// No running maximum is needed: for unit vectors the exponent is at most 0,
-// and it is clipped at 75 anyway.
-#include "common.cuh"
+// Bound on the H100: operations, two products of 2 n^2 D flops a shape plus
+// n^2 exponentials.  Both products run on the tensor cores in 3xTF32
+// (tf32_mma.cuh: three TF32 products each, about f32 accuracy; the TPU
+// kernel's single bf16 pass would miss the port's f32 limits), so the bound
+// is 3 x 4 n^2 D flops at the TF32 rate (3.14 ms for the 10 launches of a
+// forward at b = 24, n = 2048).
+//
+// A block of 4 warps owns 64 query rows of one shape, 16 a warp, held in
+// shared memory as f32 A fragments and split into hi and lo as they are
+// read.  It streams X in 64-row tiles through a two-stage cp.async ring, so
+// the next tile's copy overlaps this tile's products.  Per tile a warp
+// computes S = Q X^T (16 x 64), P = exp(clip((S - 1) / b^2)) in registers,
+// adds P's row sums to s and P X to its 16 x 128 f32 accumulator; P feeds
+// the second product straight from the first one's accumulator fragments
+// (tf32_mma.cuh).  No running maximum is needed: for unit vectors the
+// exponent is at most 0, and it is clipped at 75 anyway.  Rows or columns
+// past n (n % 64 == 32) are zeros, with P = 0 there.
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kMsRows = 32;
-constexpr int kMsTile = 32;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = kMsRows / kWarps;  // 4
-// kT row stride: +4 keeps float4 alignment and spreads a warp's 32 stores of
-// one row set over 8 banks instead of 1.
-constexpr int kKStride = kMsRows + 4;
-constexpr float kClampLo = -13.0f;
-constexpr float kClampHi = 75.0f;
+constexpr int kRows = 64;                 // query rows a block owns
+constexpr int kCols = 64;                 // X rows per streamed tile
+constexpr int kWarpsF = kRows / 16;       // 4
+constexpr int kThreadsF = 32 * kWarpsF;
+constexpr int kTileFloats = kCols * kD;
+constexpr size_t kSmem = sizeof(float) * (kRows * kD + 2 * kTileFloats);
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsF, 2)
     mean_shift_fwd_kernel(const float* __restrict__ q,
                           const float* __restrict__ x,
                           const float* __restrict__ bw2,
                           float* __restrict__ m, float* __restrict__ s_out,
                           int n) {
-  __shared__ float qT[kD * kMsRows];                    // 16 KB
-  __shared__ float xs[kMsTile * (kD + 1)];              // 16.1 KB
-  __shared__ __align__(16) float kT[kMsTile * kKStride];  // 4.5 KB, kT[c][r]
+  extern __shared__ __align__(16) float smem[];
+  float* qf = smem;                 // [kRows * kD] A fragments of q
+  float* xs = smem + kRows * kD;    // [2][kCols][kD] tiles of x
 
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kMsRows;
+  const int row0 = blockIdx.x * kRows;
   const float* qb = q + (size_t)b * n * kD;
   const float* xb = x + (size_t)b * n * kD;
   const float inv_bw2 = 1.0f / bw2[b];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = warp * kRowsPerWarp;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int ntiles = (n + kCols - 1) / kCols;
 
-  for (int t = threadIdx.x; t < kMsRows * kD; t += blockDim.x) {
-    const int r = t / kD, d = t % kD;
-    qT[d * kMsRows + r] = qb[(size_t)(row0 + r) * kD + d];
-  }
+  auto stage = [&](int tile) {
+    const int col0 = tile * kCols;
+    stage_rows(xs + (tile & 1) * kTileFloats, xb, kCols,
+               [&](int r) { return col0 + r < n ? col0 + r : -1; });
+    cp_async_commit();
+  };
+  stage(0);
+  load_frag_rows(qf, qb, kRows,
+                 [&](int r) { return row0 + r < n ? row0 + r : -1; });
+  const float4* qw = reinterpret_cast<const float4*>(qf) + warp * 16 * 32;
 
-  float acc[kRowsPerWarp][4];
-  float s[kRowsPerWarp];
+  float acc[kD / 8][4];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    s[i] = 0.0f;
+  for (int i = 0; i < kD / 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
+  float srow[2] = {0.0f, 0.0f};  // rows grp, grp + 8: this thread's columns
 
-  for (int col0 = 0; col0 < n; col0 += kMsTile) {
-    __syncthreads();  // qT written / previous tile consumed
-    load_rows_padded(xb, col0, kMsTile, xs);
-    __syncthreads();
-
-    // K for this warp's 4 rows against tile column `lane`.
-    float sim[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) sim[i] = 0.0f;
-    const float* xc = xs + lane * (kD + 1);
-#pragma unroll 4
-    for (int d = 0; d < kD; ++d) {
-      const float xv = xc[d];
-      const float* qd = qT + d * kMsRows + r0;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) sim[i] = fmaf(qd[i], xv, sim[i]);
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const float e = fminf(fmaxf((sim[i] - 1.0f) * inv_bw2, kClampLo), kClampHi);
-      kT[lane * kKStride + r0 + i] = expf(e);
-    }
-    __syncwarp();
+    __syncthreads();  // tile it (and the q fragments) visible to all
+    const float* xt = xs + (it & 1) * kTileFloats;
 
-    // acc[i][j] += sum_c K[r0 + i][c] * x[c][lane + 32 j]
-#pragma unroll 4
-    for (int c = 0; c < kMsTile; ++c) {
-      const float4 kv = *reinterpret_cast<const float4*>(kT + c * kKStride + r0);
-      const float kk[4] = {kv.x, kv.y, kv.z, kv.w};
-      const float* xr = xs + c * (kD + 1) + lane;
+    // S = Q X^T: 16 rows x 64 columns, 8 n-tiles.
+    float sc[kCols / 8][4];
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        s[i] += kk[i];
+    for (int i = 0; i < kCols / 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(kk[i], xr[32 * j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+#pragma unroll 2
+    for (int kk = 0; kk < kD / 8; ++kk) {
+      FragA a;
+      a.set(qw[kk * 32 + lane]);
+      FragB bx[kCols / 8];
+#pragma unroll
+      for (int nt = 0; nt < kCols / 8; ++nt)
+        bx[nt] = frag_bt(xt, nt * 8, kk, grp, tig);
+      mma_3xtf32_row<kCols / 8>(sc, a, bx);
+    }
+
+    // P in place of S; its row sums.
+    const int col0 = it * kCols;
+#pragma unroll
+    for (int nt = 0; nt < kCols / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = col0 + nt * 8 + 2 * tig + (r & 1);
+        bool inside;
+        const float p = kernel_value(sc[nt][r] - 1.0f, inv_bw2, inside);
+        sc[nt][r] = col < n ? p : 0.0f;
+        srow[r >> 1] += sc[nt][r];
       }
+
+    // acc += P X: k over the tile's 64 rows (8 steps), n over D (16 tiles).
+#pragma unroll
+    for (int ks = 0; ks < kCols / 8; ++ks) {
+      FragA a;
+      a.from_c(sc[ks]);
+      mma_3xtf32_rows_of(acc, a, xt, ks * 8, grp, tig);
     }
-    __syncwarp();  // kT of this warp consumed before the next tile
+    __syncthreads();  // tile it consumed before its stage is refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int row = row0 + r0 + i;
-    const float inv = 1.0f / s[i];
-    float* mrow = m + ((size_t)b * n + row) * kD;
+  for (int h = 0; h < 2; ++h) {
+    srow[h] += __shfl_xor_sync(0xffffffffu, srow[h], 1);
+    srow[h] += __shfl_xor_sync(0xffffffffu, srow[h], 2);
+  }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) mrow[lane + 32 * j] = acc[i][j] * inv;
-    if (lane == 0) s_out[(size_t)b * n + row] = s[i];
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + warp * 16 + grp + 8 * h;
+    if (row >= n) continue;
+    const float inv = 1.0f / srow[h];
+    float* mrow = m + ((size_t)b * n + row) * kD + 4 * tig;
+#pragma unroll
+    for (int p = 0; p < kD / 16; ++p)
+      *reinterpret_cast<float4*>(mrow + 16 * p) = pair_row(acc, p, h, inv);
+    if (tig == 0) s_out[(size_t)b * n + row] = srow[h];
   }
 }
 
@@ -120,8 +148,11 @@ __global__ void __launch_bounds__(kThreads)
 PRIFIT_API int mean_shift_forward(const void* q, const void* x,
                                   const void* bw2, void* m, void* s, int b,
                                   int n, void* stream) {
-  dim3 grid(n / kMsRows, b);
-  mean_shift_fwd_kernel<<<grid, kThreads, 0,
+  cudaFuncSetAttribute(mean_shift_fwd_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kSmem);
+  dim3 grid((n + kRows - 1) / kRows, b);
+  mean_shift_fwd_kernel<<<grid, kThreadsF, kSmem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(x),
       static_cast<const float*>(bw2), static_cast<float*>(m),

@@ -1,5 +1,6 @@
-// Backward of one Gaussian mean-shift step (mean_shift.cu), in two passes:
-// nothing [n, n] is stored and no atomics are used.
+// Backward of one Gaussian mean-shift step (mean_shift.cu) on the tensor
+// cores, over the live rows of the cotangent only: nothing [n, n] is stored
+// and no atomics are used.
 //
 // Forward: K_ij = exp(clip(e_ij, -13, 75)), e_ij = (<q_i, x_j> - 1) / b^2,
 //          s_i = sum_j K_ij,  m_i = (sum_j K_ij x_j) / s_i.
@@ -14,283 +15,383 @@
 // _bwd_kernel (_pallas_bwd, the custom VJP of mean_shift_step_pallas).  That
 // kernel walks its row tiles in a sequential grid and carries dx across them
 // in one [n, D] output block.  Blocks on Hopper run in no order, so the two
-// sums go to two kernels, as in a flash-attention backward:
-//   1. rows pass: a block owns 32 rows i of one shape and walks over x in
-//      32-row tiles.  It recomputes K and <g_i, x_j>, accumulates dq in
-//      registers, and writes c_i for the second pass.
-//   2. columns pass: a block owns 32 rows j of x and walks over q and g in
-//      32-row tiles, with each tile's 1/s_i and c_i/(s_i b^2) read once.  It
-//      recomputes K and <g_i, x_j> and accumulates dx in registers.
-// Each warp owns 4 of the block's rows; the 4 x 32 values of t (and K/s) it
-// needs go through shared memory that only it touches, so no block barrier
-// sits between the products, as in the forward kernel.  Operands are f32 like
-// the forward kernel's (the TPU kernel's are bf16).
+// sums go to two kernels, as in a flash-attention backward.
 //
-// Bound on the H100: operations.  Counted as 10 n^2 D flops per shape and
-// launch (the two forward products and the three backward ones) plus n^2
-// exponentials: 128.8 GFLOP at b = 24, n = 2048, D = 128, so 1.92 ms at
-// 67 TFLOP/s f32.  This simple version recomputes both forward products in
-// each pass, 14 n^2 D flops in all, on the f32 pipes.
-#include "common.cuh"
+// Live rows.  A row i with g_i = 0 has c_i = 0 and t_ij = 0, so it adds
+// exactly nothing to dq or dx.  On the self-sup path g is the gradient of
+// the centers gathered from the modes, so at most max_num_clusters (25) of
+// n rows are live.  The wrapper lists them on the device (order: live rows
+// first in ascending id, count: how many), and both passes walk that list:
+//   1. rows pass: a block of 8 warps owns 32 slots k of order.  If no slot
+//      is live it writes zeros to dq rows order[k]; otherwise it holds the
+//      32 rows of q and g as A fragments and streams x in 128-row chunks,
+//      each warp taking 16 slots x 32 chunk rows.  The stacked product
+//      [q; g] x^T gives sim and <g, x> from one read of x's fragments;
+//      t then feeds t x from the accumulator (tf32_mma.cuh).  The four
+//      warps of a slot group add their partial dq through shared memory.
+//      It writes c_i for the second pass.
+//   2. columns pass: a block of 4 warps owns 64 rows j of x (A fragments)
+//      and streams only the ceil(count / 32) tiles of live rows i, gathered
+//      through order with their 1 / s_i, 1 / (s_i b^2), c_i / (s_i b^2).
+//      Per tile it recomputes sim and <g, x>, forms t and K / s in
+//      registers, and accumulates dx_j = t^T q + (K / s)^T g.
+// With every row live (count = n) this is the dense flash-style backward.
+//
+// Precision.  t_ij and K_ij / s_i are up to 1 / b^2 (~250 at the smallest
+// bandwidth held) times the gradient they sum to, and an error of sim moves
+// every K of its row by that factor too.  The tensor cores add each product
+// to their accumulator with less care than an f32 add, so no long sum stays
+// in them: sim and <g, x> are summed a k-step at a time, dq and dx a
+// streamed tile at a time, each partial added in f32.
+//
+// Bound on the H100: operations when g is dense, 10 n^2 D flops a shape
+// (the two forward products and the three backward ones; this kernel
+// recomputes sim and <g, x> in both passes, 14 n^2 D) in 3xTF32 at the TF32
+// rate; bytes when few rows are live (10 count n D flops): x and g read,
+// dq and dx written.
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBlockRows = 32;                       // rows a block owns
-constexpr int kStream = 32;                          // rows per streamed tile
-constexpr int kWarps = kThreads / 32;                // 8
-constexpr int kRowsPerWarp = kBlockRows / kWarps;    // 4
-constexpr int kStride = kBlockRows + 4;  // t row stride, keeps float4 aligned
-constexpr int kPadded = kD + 1;          // padded tile row: 32 lanes, 32 banks
-constexpr float kClampLo = -13.0f;
-constexpr float kClampHi = 75.0f;
-
-static_assert(kRowsPerWarp == 4, "the float4 reads assume 4 rows a warp");
-
-// K_ij and whether its exponent lies strictly inside the clip range (the
-// gradient cutoff of guard_exp).
-__device__ __forceinline__ float kernel_value(float sim, float inv_bw2,
-                                              bool& live) {
-  const float e = (sim - 1.0f) * inv_bw2;
-  live = e > kClampLo && e < kClampHi;
-  return expf(fminf(fmaxf(e, kClampLo), kClampHi));
+template <int NT>
+__device__ __forceinline__ void add_to(float (*d)[4],
+                                       const float (&part)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) d[nt][r] += part[nt][r];
 }
 
-// dst[d * kBlockRows + r] = src[(row0 + r) * kD + d] for r < kBlockRows.
-__device__ __forceinline__ void load_transposed(const float* __restrict__ src,
-                                                int row0,
-                                                float* __restrict__ dst) {
-  for (int t = threadIdx.x; t < kBlockRows * kD; t += blockDim.x) {
-    const int r = t / kD, d = t % kD;
-    dst[d * kBlockRows + r] = src[(size_t)(row0 + r) * kD + d];
-  }
-}
-
+// ---- rows pass ----
+constexpr int kSlots = 32;                    // slots of order a block owns
+constexpr int kChunk = 128;                   // x rows per streamed chunk
+constexpr int kSub = 32;                      // chunk rows per warp
+constexpr int kRowWarps = (kSlots / 16) * (kChunk / kSub);  // 8
+constexpr int kRowThreads = 32 * kRowWarps;
+constexpr int kChunkFloats = kChunk * kD;
+constexpr int kRedStride = kD + 4;  // dq partials: rows 4 banks apart
 constexpr size_t kRowsSmem =
-    sizeof(float) * (2 * kD * kBlockRows + kStream * kPadded +
-                     kStream * kStride);
+    sizeof(float) * (2 * kSlots * kD + 2 * kSlots + 2 * kChunkFloats);
+static_assert(kRowWarps * 16 * kRedStride <= 2 * kChunkFloats,
+              "the dq reduction reuses the chunk ring");
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowThreads, 1)
     ms_bwd_rows_kernel(const float* __restrict__ q,
                        const float* __restrict__ x,
                        const float* __restrict__ bw2,
                        const float* __restrict__ m,
                        const float* __restrict__ s,
                        const float* __restrict__ g,
+                       const int* __restrict__ order,
+                       const int* __restrict__ count,
                        float* __restrict__ c_out, float* __restrict__ dq,
                        int n) {
   extern __shared__ __align__(16) float smem[];
-  float* qT = smem;                       // [kD][32] this block's q rows
-  float* gT = qT + kD * kBlockRows;       // [kD][32] this block's g rows
-  float* xs = gT + kD * kBlockRows;       // [32][kD + 1] tile of x
-  float* tT = xs + kStream * kPadded;     // [32 tile rows][kStride]: t[r][c]
-
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockRows;
+  const int k0 = blockIdx.x * kSlots;
   const size_t base = (size_t)b * n;
+  const int* ord = order + base;
+  const int cnt = count[b];
+  constexpr int kV = kD / 4;
+
+  if (k0 >= cnt) {  // no live slot: dq rows are exact zeros
+    for (int e = threadIdx.x; e < kSlots * kV; e += blockDim.x) {
+      const int k = k0 + e / kV;
+      if (k < n)
+        reinterpret_cast<float4*>(dq + (base + ord[k]) * kD)[e % kV] =
+            make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    return;
+  }
+
+  float* qf = smem;                    // [kSlots * kD] A fragments of q
+  float* gf = qf + kSlots * kD;        // [kSlots * kD] A fragments of g
+  float* rs2 = gf + kSlots * kD;       // [kSlots] 1 / (s b^2)
+  float* cs2 = rs2 + kSlots;           // [kSlots] c / (s b^2)
+  float* xs = cs2 + kSlots;            // [2][kChunk][kD] chunks of x
+
   const float* xb = x + base * kD;
   const float inv_bw2 = 1.0f / bw2[b];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = warp * kRowsPerWarp;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int sgrp = warp / (kChunk / kSub);   // 16-slot group of this warp
+  const int sub = warp % (kChunk / kSub);    // its 32 rows of each chunk
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  auto slot_row = [&](int r) { return k0 + r < n ? ord[k0 + r] : -1; };
 
-  load_transposed(q + base * kD, row0, qT);
-  load_transposed(g + base * kD, row0, gT);
+  auto stage = [&](int chunk) {
+    const int j0 = chunk * kChunk;
+    stage_rows(xs + (chunk & 1) * kChunkFloats, xb, kChunk,
+               [&](int r) { return j0 + r < n ? j0 + r : -1; });
+    cp_async_commit();
+  };
+  stage(0);
+  load_frag_rows(qf, q + base * kD, kSlots, slot_row);
+  load_frag_rows(gf, g + base * kD, kSlots, slot_row);
+  // Row statistics, one warp a slot: c = <g, m>, 1 / (s b^2), c / (s b^2).
+  for (int r = warp; r < kSlots; r += kRowWarps) {
+    const int row = slot_row(r);
+    float c = 0.0f, r2 = 0.0f;
+    if (row >= 0) {
+      const float4 gv =
+          reinterpret_cast<const float4*>(g + (base + row) * kD)[lane];
+      const float4 mv =
+          reinterpret_cast<const float4*>(m + (base + row) * kD)[lane];
+      c = gv.x * mv.x + gv.y * mv.y + gv.z * mv.z + gv.w * mv.w;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        c += __shfl_xor_sync(0xffffffffu, c, off);
+      r2 = inv_bw2 / s[base + row];
+      if (lane == 0) c_out[base + row] = c;
+    }
+    if (lane == 0) {
+      rs2[r] = r2;
+      cs2[r] = c * r2;
+    }
+  }
+  __syncthreads();
+  const float my_rs2[2] = {rs2[sgrp * 16 + grp], rs2[sgrp * 16 + grp + 8]};
+  const float my_cs2[2] = {cs2[sgrp * 16 + grp], cs2[sgrp * 16 + grp + 8]};
+  const float4* qw = reinterpret_cast<const float4*>(qf) + sgrp * 16 * 32;
+  const float4* gw = reinterpret_cast<const float4*>(gf) + sgrp * 16 * 32;
+  const bool active = k0 + sgrp * 16 < cnt;  // a live slot in my group
 
-  // Row statistics of this warp's rows: 1 / (s b^2) and c / (s b^2).
-  float rs2[kRowsPerWarp], cs2[kRowsPerWarp];
+  float acc[kD / 8][4] = {};
+  for (int it = 0; it < nchunks; ++it) {
+    if (it + 1 < nchunks) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk it visible to all
+    const int j0 = it * kChunk + sub * kSub;
+    if (active && j0 < n) {
+      const float* xt = xs + (it & 1) * kChunkFloats + sub * kSub * kD;
+      float sim[kSub / 8][4] = {}, gx[kSub / 8][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kD / 8; ++kk) {
+        FragA aq, ag;
+        aq.set(qw[kk * 32 + lane]);
+        ag.set(gw[kk * 32 + lane]);
+        FragB bx[kSub / 8];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const size_t row = base + row0 + r0 + i;
-    float c = 0.0f;
+        for (int nt = 0; nt < kSub / 8; ++nt)
+          bx[nt] = frag_bt(xt, nt * 8, kk, grp, tig);
+        float ps[kSub / 8][4], pg[kSub / 8][4];
+        mma_3xtf32_row<kSub / 8, true>(ps, aq, bx);
+        mma_3xtf32_row<kSub / 8, true>(pg, ag, bx);
+        add_to(sim, ps);
+        add_to(gx, pg);
+      }
+      // t in place of <g, x>
 #pragma unroll
-    for (int k = 0; k < kD / 32; ++k)
-      c = fmaf(g[row * kD + lane + 32 * k], m[row * kD + lane + 32 * k], c);
+      for (int nt = 0; nt < kSub / 8; ++nt)
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      c += __shfl_xor_sync(0xffffffffu, c, off);
-    if (lane == 0) c_out[row] = c;
-    rs2[i] = inv_bw2 / s[row];
-    cs2[i] = c * rs2[i];
+        for (int r = 0; r < 4; ++r) {
+          bool inside;
+          const float K = kernel_value(sim[nt][r] - 1.0f, inv_bw2, inside);
+          const int h = r >> 1;
+          gx[nt][r] = inside ? K * (gx[nt][r] * my_rs2[h] - my_cs2[h]) : 0.0f;
+        }
+      // acc += t x, this chunk's sum first
+      FragA at[kSub / 8];
+#pragma unroll
+      for (int ks = 0; ks < kSub / 8; ++ks) at[ks].from_c(gx[ks]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float part[8][4];
+        mma_3xtf32_half<true>(part, at[0], xt, 0, half, grp, tig);
+#pragma unroll
+        for (int ks = 1; ks < kSub / 8; ++ks)
+          mma_3xtf32_half(part, at[ks], xt, ks * 8, half, grp, tig);
+        add_to(acc + 8 * half, part);
+      }
+    }
+    __syncthreads();  // chunk it consumed before its stage is refilled
   }
 
-  float acc[kRowsPerWarp][4];
+  // dq of each slot group = the sum of its four warps' partials.
+  float* red = xs;  // [kRowWarps][16][kRedStride]
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
+  for (int h = 0; h < 2; ++h) {
+    float* dst = red + (warp * 16 + grp + 8 * h) * kRedStride + 4 * tig;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
-
-  for (int col0 = 0; col0 < n; col0 += kStream) {
-    __syncthreads();  // qT, gT written / previous tile consumed
-    load_rows_padded(xb, col0, kStream, xs);
-    __syncthreads();
-
-    // sim and <g, x> of this warp's 4 rows against tile row `lane`.
-    float sim[kRowsPerWarp], gx[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) sim[i] = gx[i] = 0.0f;
-    const float* xc = xs + lane * kPadded;
-#pragma unroll 4
-    for (int d = 0; d < kD; ++d) {
-      const float xv = xc[d];
-      const float4 qv = *reinterpret_cast<const float4*>(qT + d * kBlockRows + r0);
-      const float4 gv = *reinterpret_cast<const float4*>(gT + d * kBlockRows + r0);
-      sim[0] = fmaf(qv.x, xv, sim[0]);
-      sim[1] = fmaf(qv.y, xv, sim[1]);
-      sim[2] = fmaf(qv.z, xv, sim[2]);
-      sim[3] = fmaf(qv.w, xv, sim[3]);
-      gx[0] = fmaf(gv.x, xv, gx[0]);
-      gx[1] = fmaf(gv.y, xv, gx[1]);
-      gx[2] = fmaf(gv.z, xv, gx[2]);
-      gx[3] = fmaf(gv.w, xv, gx[3]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      bool live;
-      const float K = kernel_value(sim[i], inv_bw2, live);
-      tT[lane * kStride + r0 + i] = live ? K * (gx[i] * rs2[i] - cs2[i]) : 0.0f;
-    }
-    __syncwarp();
-
-    // acc[i][k] += sum_c t[r0 + i][c] * x[c][lane + 32 k]
-#pragma unroll 4
-    for (int c = 0; c < kStream; ++c) {
-      const float4 tv = *reinterpret_cast<const float4*>(tT + c * kStride + r0);
-      const float tt[4] = {tv.x, tv.y, tv.z, tv.w};
-      const float* xr = xs + c * kPadded + lane;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(tt[i], xr[32 * k], acc[i][k]);
-    }
-    __syncwarp();  // this warp's t consumed before the next tile
+    for (int p = 0; p < kD / 16; ++p)
+      *reinterpret_cast<float4*>(dst + 16 * p) = pair_row(acc, p, h, 1.0f);
   }
-
+  __syncthreads();
+  constexpr int kParts = kChunk / kSub;
+  for (int e = threadIdx.x; e < kSlots * kV; e += blockDim.x) {
+    const int r = e / kV, c4 = e % kV;
+    const int row = slot_row(r);
+    if (row < 0) continue;
+    const int w0 = (r / 16) * kParts;
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    float* out = dq + (base + row0 + r0 + i) * kD;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out[lane + 32 * k] = acc[i][k];
+    for (int p = 0; p < kParts; ++p) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          red + ((w0 + p) * 16 + r % 16) * kRedStride + c4 * 4);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    reinterpret_cast<float4*>(dq + (base + row) * kD)[c4] = sum;
   }
 }
 
+// ---- columns pass ----
+constexpr int kJRows = 64;                 // rows j of x a block owns
+constexpr int kColWarps = kJRows / 16;     // 4
+constexpr int kColThreads = 32 * kColWarps;
+constexpr int kITile = 32;                 // live rows i per streamed tile
+constexpr int kITileFloats = 2 * kITile * kD + 3 * kITile;
 constexpr size_t kColsSmem =
-    sizeof(float) * (kD * kBlockRows + 2 * kStream * kPadded +
-                     2 * kStream * kStride + 3 * kStream);
+    sizeof(float) * (kJRows * kD + 2 * kITileFloats);
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kColThreads, 2)
     ms_bwd_cols_kernel(const float* __restrict__ q,
                        const float* __restrict__ x,
                        const float* __restrict__ bw2,
                        const float* __restrict__ s,
                        const float* __restrict__ g,
                        const float* __restrict__ c_in,
+                       const int* __restrict__ order,
+                       const int* __restrict__ count,
                        float* __restrict__ dx, int n) {
   extern __shared__ __align__(16) float smem[];
-  float* xT = smem;                      // [kD][32] this block's x rows
-  float* qs = xT + kD * kBlockRows;      // [32][kD + 1] tile of q
-  float* gs = qs + kStream * kPadded;    // [32][kD + 1] tile of g
-  float* tT = gs + kStream * kPadded;    // [32 tile rows][kStride]: t[i][j]
-  float* wT = tT + kStream * kStride;    // [32 tile rows][kStride]: K/s
-  float* rs = wT + kStream * kStride;    // [32] 1 / s_i of the tile
-  float* rs2 = rs + kStream;             // [32] 1 / (s_i b^2)
-  float* cs2 = rs2 + kStream;            // [32] c_i / (s_i b^2)
+  float* xf = smem;                    // [kJRows * kD] A fragments of x
+  float* ring = smem + kJRows * kD;    // [2] x {q, g tiles, rs, rs2, cs2}
 
   const int b = blockIdx.y;
-  const int col0 = blockIdx.x * kBlockRows;
+  const int j0 = blockIdx.x * kJRows;
   const size_t base = (size_t)b * n;
-  const float* qb = q + base * kD;
-  const float* gb = g + base * kD;
+  const int* ord = order + base;
+  const int cnt = count[b];
   const float inv_bw2 = 1.0f / bw2[b];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = warp * kRowsPerWarp;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int ntiles = (cnt + kITile - 1) / kITile;
 
-  load_transposed(x + base * kD, col0, xT);
-
-  float acc[kRowsPerWarp][4];
-#pragma unroll
-  for (int j = 0; j < kRowsPerWarp; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = 0.0f;
-
-  for (int i0 = 0; i0 < n; i0 += kStream) {
-    __syncthreads();  // xT written / previous tile consumed
-    load_rows_padded(qb, i0, kStream, qs);
-    load_rows_padded(gb, i0, kStream, gs);
-    if (threadIdx.x < kStream) {
-      const size_t row = base + i0 + threadIdx.x;
-      const float r = 1.0f / s[row];
-      rs[threadIdx.x] = r;
-      rs2[threadIdx.x] = inv_bw2 / s[row];
-      cs2[threadIdx.x] = c_in[row] * (inv_bw2 / s[row]);
-    }
-    __syncthreads();
-
-    // sim and <g, x> of tile row `lane` against this warp's 4 x rows.
-    float sim[kRowsPerWarp], gx[kRowsPerWarp];
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) sim[j] = gx[j] = 0.0f;
-    const float* qr = qs + lane * kPadded;
-    const float* gr = gs + lane * kPadded;
-#pragma unroll 4
-    for (int d = 0; d < kD; ++d) {
-      const float qv = qr[d], gv = gr[d];
-      const float4 xv = *reinterpret_cast<const float4*>(xT + d * kBlockRows + c0);
-      sim[0] = fmaf(qv, xv.x, sim[0]);
-      sim[1] = fmaf(qv, xv.y, sim[1]);
-      sim[2] = fmaf(qv, xv.z, sim[2]);
-      sim[3] = fmaf(qv, xv.w, sim[3]);
-      gx[0] = fmaf(gv, xv.x, gx[0]);
-      gx[1] = fmaf(gv, xv.y, gx[1]);
-      gx[2] = fmaf(gv, xv.z, gx[2]);
-      gx[3] = fmaf(gv, xv.w, gx[3]);
-    }
-    const float r_s = rs[lane], r_s2 = rs2[lane], c_s2 = cs2[lane];
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      bool live;
-      const float K = kernel_value(sim[j], inv_bw2, live);
-      tT[lane * kStride + c0 + j] = live ? K * (gx[j] * r_s2 - c_s2) : 0.0f;
-      wT[lane * kStride + c0 + j] = K * r_s;
-    }
-    __syncwarp();
-
-    // acc[j][k] += sum_i t[i][c0 + j] q[i][lane + 32 k]
-    //                   + (K/s)[i][c0 + j] g[i][lane + 32 k]
-#pragma unroll 2
-    for (int i = 0; i < kStream; ++i) {
-      const float4 tv = *reinterpret_cast<const float4*>(tT + i * kStride + c0);
-      const float4 wv = *reinterpret_cast<const float4*>(wT + i * kStride + c0);
-      const float tt[4] = {tv.x, tv.y, tv.z, tv.w};
-      const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
-      const float* qrow = qs + i * kPadded + lane;
-      const float* grow = gs + i * kPadded + lane;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float qv = qrow[32 * k], gv = grow[32 * k];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j)
-          acc[j][k] = fmaf(tt[j], qv, fmaf(ww[j], gv, acc[j][k]));
+  auto stage = [&](int tile) {
+    float* qs = ring + (tile & 1) * kITileFloats;
+    float* gs = qs + kITile * kD;
+    float* st = gs + kITile * kD;
+    const int i0 = tile * kITile;
+    auto live_row = [&](int r) { return i0 + r < cnt ? ord[i0 + r] : -1; };
+    stage_rows(qs, q + base * kD, kITile, live_row);
+    stage_rows(gs, g + base * kD, kITile, live_row);
+    cp_async_commit();
+    // 1 / s, 1 / (s b^2), c / (s b^2); zeros past count make t = K / s = 0
+    for (int r = threadIdx.x; r < kITile; r += blockDim.x) {
+      const int row = live_row(r);
+      float rs = 0.0f, rs2 = 0.0f, cs2 = 0.0f;
+      if (row >= 0) {
+        const float sv = s[base + row];
+        rs = 1.0f / sv;
+        rs2 = inv_bw2 / sv;
+        cs2 = c_in[base + row] * rs2;
       }
+      st[r] = rs;
+      st[kITile + r] = rs2;
+      st[2 * kITile + r] = cs2;
     }
-    __syncwarp();  // this warp's t and K/s consumed before the next tile
+  };
+  if (ntiles > 0) stage(0);
+  load_frag_rows(xf, x + base * kD, kJRows,
+                 [&](int r) { return j0 + r < n ? j0 + r : -1; });
+  const float4* xw = reinterpret_cast<const float4*>(xf) + warp * 16 * 32;
+
+  float acc[kD / 8][4] = {};
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it visible to all
+    const float* qs = ring + (it & 1) * kITileFloats;
+    const float* gs = qs + kITile * kD;
+    const float* st = gs + kITile * kD;
+
+    // sim = x q^T and <g, x> = x g^T: 16 rows j x 32 rows i a warp.
+    float sim[kITile / 8][4] = {}, gx[kITile / 8][4] = {};
+#pragma unroll 2
+    for (int kk = 0; kk < kD / 8; ++kk) {
+      FragA a;
+      a.set(xw[kk * 32 + lane]);
+      FragB bq[kITile / 8], bg[kITile / 8];
+#pragma unroll
+      for (int nt = 0; nt < kITile / 8; ++nt) {
+        bq[nt] = frag_bt(qs, nt * 8, kk, grp, tig);
+        bg[nt] = frag_bt(gs, nt * 8, kk, grp, tig);
+      }
+      float ps[kITile / 8][4], pg[kITile / 8][4];
+      mma_3xtf32_row<kITile / 8, true>(ps, a, bq);
+      mma_3xtf32_row<kITile / 8, true>(pg, a, bg);
+      add_to(sim, ps);
+      add_to(gx, pg);
+    }
+    // t in place of <g, x>, and K / s
+    float w[kITile / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kITile / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = nt * 8 + 2 * tig + (r & 1);
+        bool inside;
+        const float K = kernel_value(sim[nt][r] - 1.0f, inv_bw2, inside);
+        gx[nt][r] = inside ? K * (gx[nt][r] * st[kITile + i]
+                                  - st[2 * kITile + i]) : 0.0f;
+        w[nt][r] = K * st[i];
+      }
+    // acc += t^T q + (K / s)^T g, k over the tile's live rows, this
+    // tile's sum first
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float part[8][4];
+#pragma unroll
+      for (int ks = 0; ks < kITile / 8; ++ks) {
+        FragA at, aw;
+        at.from_c(gx[ks]);
+        aw.from_c(w[ks]);
+        if (ks == 0)
+          mma_3xtf32_half<true>(part, at, qs, 0, half, grp, tig);
+        else
+          mma_3xtf32_half(part, at, qs, ks * 8, half, grp, tig);
+        mma_3xtf32_half(part, aw, gs, ks * 8, half, grp, tig);
+      }
+      add_to(acc + 8 * half, part);
+    }
+    __syncthreads();  // tile it consumed before its stage is refilled
   }
 
 #pragma unroll
-  for (int j = 0; j < kRowsPerWarp; ++j) {
-    float* out = dx + (base + col0 + c0 + j) * kD;
+  for (int h = 0; h < 2; ++h) {
+    const int row = j0 + warp * 16 + grp + 8 * h;
+    if (row >= n) continue;
+    float* out = dx + (base + row) * kD + 4 * tig;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) out[lane + 32 * k] = acc[j][k];
+    for (int p = 0; p < kD / 16; ++p)
+      *reinterpret_cast<float4*>(out + 16 * p) = pair_row(acc, p, h, 1.0f);
   }
 }
 
 }  // namespace
 
-// q, x, m, g [b, n, 128] f32, bw2 [b] f32, s [b, n] f32 -> dq, dx
-// [b, n, 128] f32; c [b, n] f32 is scratch (<g_i, m_i>, written by the first
-// pass, read by the second).  n must be a multiple of 32.
+// q, x, m, g [b, n, 128] f32, bw2 [b] f32, s [b, n] f32, order [b, n] int32
+// (a permutation of each shape's rows: the live rows of g, those with a
+// nonzero entry, first in ascending id) and count [b] int32 (how many are
+// live) -> dq, dx [b, n, 128] f32; c [b, n] f32 is scratch (<g_i, m_i> of
+// the live rows, written by the first pass, read by the second).  n must be
+// a multiple of 32.  Rows of order past count must have g = 0.
 PRIFIT_API int mean_shift_backward(const void* q, const void* x,
                                    const void* bw2, const void* m,
-                                   const void* s, const void* g, void* c,
-                                   void* dq, void* dx, int b, int n,
+                                   const void* s, const void* g,
+                                   const void* order, const void* count,
+                                   void* c, void* dq, void* dx, int b, int n,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaFuncSetAttribute(ms_bwd_rows_kernel,
@@ -299,19 +400,22 @@ PRIFIT_API int mean_shift_backward(const void* q, const void* x,
   cudaFuncSetAttribute(ms_bwd_cols_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)kColsSmem);
-  const dim3 grid(n / kBlockRows, b);
   const float* qf = static_cast<const float*>(q);
   const float* xf = static_cast<const float*>(x);
   const float* bf = static_cast<const float*>(bw2);
   const float* sf = static_cast<const float*>(s);
   const float* gf = static_cast<const float*>(g);
-  ms_bwd_rows_kernel<<<grid, kThreads, kRowsSmem, st>>>(
-      qf, xf, bf, static_cast<const float*>(m), sf, gf,
+  const int* of = static_cast<const int*>(order);
+  const int* cf = static_cast<const int*>(count);
+  ms_bwd_rows_kernel<<<dim3((n + kSlots - 1) / kSlots, b), kRowThreads,
+                       kRowsSmem, st>>>(
+      qf, xf, bf, static_cast<const float*>(m), sf, gf, of, cf,
       static_cast<float*>(c), static_cast<float*>(dq), n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ms_bwd_cols_kernel<<<grid, kThreads, kColsSmem, st>>>(
-      qf, xf, bf, sf, gf, static_cast<const float*>(c),
+  ms_bwd_cols_kernel<<<dim3((n + kJRows - 1) / kJRows, b), kColThreads,
+                       kColsSmem, st>>>(
+      qf, xf, bf, sf, gf, static_cast<const float*>(c), of, cf,
       static_cast<float*>(dx), n);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,246 @@
+// Tensor-core building blocks of the mean-shift kernels (mean_shift.cu,
+// mean_shift_bwd.cu): 3xTF32 products with mma.sync m16n8k8, cp.async
+// copies into shared memory, and the fragment layouts they use.
+//
+// 3xTF32: each f32 operand is split a = hi + lo, hi = tf32(a) rounded to
+// nearest and lo = a - hi (split_tf32), and a product is taken as
+// lo*hi + hi*lo + hi*hi with an f32 accumulator.  That keeps about
+// 21 bits of each operand, against 11 for a single TF32 product, which is
+// what the f32 limits of the mean-shift step need (the exponent
+// (<q, x> - 1) / b^2 is divided by b^2 ~ 0.1-1).
+//
+// Fragments of mma.m16n8k8 (tf32 A and B, f32 C), lane = 4 grp + tig:
+//   A 16x8, row-major: a0 (grp, tig)  a1 (grp + 8, tig)
+//                      a2 (grp, tig + 4)  a3 (grp + 8, tig + 4)
+//   B 8x8 (k x n):     b0 (tig, grp)  b1 (tig + 4, grp)
+//   C 16x8:            c0 (grp, 2 tig)  c1 (grp, 2 tig + 1)
+//                      c2 (grp + 8, 2 tig)  c3 (grp + 8, 2 tig + 1)
+// The k index of a product may be permuted freely.  Two permutations keep
+// the loads wide and the C tile in registers:
+//   - within a k-step, k = tig is column 2 tig and k = tig + 4 column
+//     2 tig + 1 of the step's 8, so b0 and b1 of a first product (B = a
+//     tile transposed) are adjacent floats (frag_bt, load_frag_rows);
+//   - a C tile of a first product feeds a second product as its A operand
+//     without a trip through shared memory: with k = tig the C column
+//     2 tig and k = tig + 4 the column 2 tig + 1, (a0, a1, a2, a3) =
+//     (c0, c2, c1, c3), and B's rows are read in that order (frag_b_pair).
+#pragma once
+
+#include "common.cuh"
+
+// A [rows][kD] f32 tile in shared memory keeps rows of kD floats with the
+// 8-byte pairs of row r permuted, pair p at p ^ 4 sw(r), sw(r) = (r & 3) ^
+// ((r >> 2) & 1).  Then each half-warp's 8-byte B-fragment reads hit all 32
+// banks once: frag_bt's (4 consecutive rows, 4 adjacent pairs) and
+// frag_b_pair's (rows 2 tig, pairs grp) alike, which no row padding does
+// for both.  16-byte chunks stay whole, so cp.async fills rows as they are.
+__device__ __forceinline__ int tile_at(int r, int c) {
+  const int sw = (r & 3) ^ ((r >> 2) & 1);
+  return r * kD + ((((c >> 1) ^ (sw << 2)) << 1) | (c & 1));
+}
+
+constexpr float kClampLo = -13.0f;
+constexpr float kClampHi = 75.0f;
+
+// hi = x rounded to TF32 (to nearest, ties away: add half a TF32 ulp, then
+// drop the 13 low bits), lo = x - hi exactly.  lo goes to the tensor cores
+// as it is: an mma on .tf32 operands ignores their 13 low bits, so lo is
+// truncated to TF32 there, which costs less than 2^-23 |x| (|lo| is at
+// most half a TF32 ulp of x).  Three integer and float operations, against
+// two cvt.rna.tf32.f32 conversions and a subtraction.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                      float a3) {
+    split_tf32(a0, hi[0], lo[0]);
+    split_tf32(a1, hi[1], lo[1]);
+    split_tf32(a2, hi[2], lo[2]);
+    split_tf32(a3, hi[3], lo[3]);
+  }
+  __device__ __forceinline__ void set(float4 v) { set(v.x, v.y, v.z, v.w); }
+  // From a C tile of a first product (the permuted k order above).
+  __device__ __forceinline__ void from_c(const float (&c)[4]) {
+    set(c[0], c[2], c[1], c[3]);
+  }
+};
+
+struct FragB {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    split_tf32(b0, hi[0], lo[0]);
+    split_tf32(b1, hi[1], lo[1]);
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b (an accumulator of zeros).
+__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.0f));
+}
+
+// d[nt] += a b[nt] (d[nt] = a b[nt] when kFresh) in 3xTF32 for NT n-tiles,
+// the small terms first, each term over all n-tiles before the next, so NT
+// independent chains hide the mma latency.
+template <int NT, bool kFresh = false>
+__device__ __forceinline__ void mma_3xtf32_row(float (*d)[4], const FragA& a,
+                                               const FragB (&b)[NT]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (kFresh)
+      mma_tf32_fresh(d[nt], a.lo, b[nt].hi);
+    else
+      mma_tf32(d[nt], a.lo, b[nt].hi);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], a.hi, b[nt].lo);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], a.hi, b[nt].hi);
+}
+
+// B fragment of tile^T for a first product (k over the tile's columns,
+// permuted as the A fragments are): rows n0 + grp, columns 8 kk + 2 tig
+// and 8 kk + 2 tig + 1, one 8-byte load.
+__device__ __forceinline__ FragB frag_bt(const float* tile, int n0, int kk,
+                                         int grp, int tig) {
+  const float2 v = *reinterpret_cast<const float2*>(
+      tile + tile_at(n0 + grp, 8 * kk + 2 * tig));
+  FragB b;
+  b.set(v.x, v.y);
+  return b;
+}
+
+// B fragments of the tile for a second product whose A came from a C tile
+// (k over the tile's rows k0 + 2 tig, k0 + 2 tig + 1), for the pair of
+// n-tiles 2 p (even) and 2 p + 1 (odd): n-tile 2 p + e, lane column grp
+// is tile column 16 p + 2 grp + e, so both come from one 8-byte load a
+// row.  Its C element (row, 2 tig + c) is output column 16 p + 4 tig +
+// 2 c + e: a thread's 4 values of a row in the pair are 4 adjacent
+// columns (pair_row).
+__device__ __forceinline__ void frag_b_pair(const float* tile, int k0, int p,
+                                            int grp, int tig, FragB& even,
+                                            FragB& odd) {
+  const int c = 16 * p + 2 * grp;
+  const float2 r0 = *reinterpret_cast<const float2*>(
+      tile + tile_at(k0 + 2 * tig, c));
+  const float2 r1 = *reinterpret_cast<const float2*>(
+      tile + tile_at(k0 + 2 * tig + 1, c));
+  even.set(r0.x, r1.x);
+  odd.set(r0.y, r1.y);
+}
+
+// d[i] += a tile[k0..k0+8) (d[i] = ... when kFresh) for the 8 output
+// n-tiles 8 half + i (output columns 64 half..64 half + 63).
+template <bool kFresh = false>
+__device__ __forceinline__ void mma_3xtf32_half(float (*d)[4], const FragA& a,
+                                                const float* tile, int k0,
+                                                int half, int grp, int tig) {
+  FragB bx[8];
+#pragma unroll
+  for (int pp = 0; pp < 4; ++pp)
+    frag_b_pair(tile, k0, 4 * half + pp, grp, tig, bx[2 * pp],
+                bx[2 * pp + 1]);
+  mma_3xtf32_row<8, kFresh>(d, a, bx);
+}
+
+// d[dn] += a tile[k0..k0+8) for all kD / 8 n-tiles of the output, in two
+// halves (32 registers of B fragments at a time).
+__device__ __forceinline__ void mma_3xtf32_rows_of(float (&d)[kD / 8][4],
+                                                   const FragA& a,
+                                                   const float* tile, int k0,
+                                                   int grp, int tig) {
+  mma_3xtf32_half(d, a, tile, k0, 0, grp, tig);
+  mma_3xtf32_half(d + 8, a, tile, k0, 1, grp, tig);
+}
+
+// The C values of row half h (rows grp, grp + 8) of n-tile pair p, in
+// output column order 16 p + 4 tig + 0..3 (see frag_b_pair), times scale.
+__device__ __forceinline__ float4 pair_row(const float (&d)[kD / 8][4], int p,
+                                           int h, float scale) {
+  return make_float4(d[2 * p][2 * h] * scale, d[2 * p + 1][2 * h] * scale,
+                     d[2 * p][2 * h + 1] * scale,
+                     d[2 * p + 1][2 * h + 1] * scale);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage rows src_row(r), r < nrows, of a [*, kD] f32 array into an
+// [nrows][kD] tile (tile_at) with cp.async; a row for which src_row gives
+// -1 is filled with zeros.  All threads of the block take part.
+template <typename RowFn>
+__device__ __forceinline__ void stage_rows(float* tile,
+                                           const float* __restrict__ src,
+                                           int nrows, RowFn src_row) {
+  constexpr int kV = kD / 4;
+  for (int c = threadIdx.x; c < nrows * kV; c += blockDim.x) {
+    const int r = c / kV, c4 = c % kV;
+    const int row = src_row(r);
+    const float* g = src + (size_t)(row < 0 ? 0 : row) * kD + c4 * 4;
+    cp_async16(tile + tile_at(r, c4 * 4), g, row >= 0);
+  }
+}
+
+// Rows src_row(r), r < nrows (a multiple of 16), of a [*, kD] f32 array into
+// shared memory as A fragments, split into hi and lo as they are read (the
+// split fragments of a warp's 16 rows would not fit in registers beside its
+// accumulator): float4 index (16 grp16 + kk) 32 + lane holds (a0, a1, a2,
+// a3) of rows 16 grp16.. and k-step kk (-1: zeros), with the k index
+// permuted within the step so that k = tig is column 8 kk + 2 tig and
+// k = tig + 4 is column 8 kk + 2 tig + 1 (frag_bt reads B likewise).
+template <typename RowFn>
+__device__ __forceinline__ void load_frag_rows(float* frag,
+                                               const float* __restrict__ src,
+                                               int nrows, RowFn src_row) {
+  for (int e = threadIdx.x; e < nrows * kD; e += blockDim.x) {
+    const int r = e / kD, d = e % kD;
+    const int row = src_row(r);
+    const float v = row < 0 ? 0.0f : src[(size_t)row * kD + d];
+    const int rr = r % 16, dd = d % 8;
+    const int lane = (rr % 8) * 4 + dd / 2;
+    const int comp = rr / 8 + 2 * (dd % 2);
+    frag[(((r / 16) * (kD / 8) + d / 8) * 32 + lane) * 4 + comp] = v;
+  }
+}
+
+// K = exp(clip(e)) with e = (sim - 1) / b^2, from sm1 = sim - 1, and
+// whether e lies strictly inside the clip range (guard_exp's gradient
+// cutoff).
+__device__ __forceinline__ float kernel_value(float sm1, float inv_bw2,
+                                              bool& live) {
+  const float e = sm1 * inv_bw2;
+  live = e > kClampLo && e < kClampHi;
+  return expf(fminf(fmaxf(e, kClampLo), kClampHi));
+}

@@ -14,7 +14,8 @@ KERNEL = Kernel(
     {"mean_shift_forward": (P, P, P, P, P, I32, I32, P)})
 BWD_KERNEL = Kernel(
     "mean_shift_bwd", "prifit_tpu/ops/pallas/mean_shift.py:176",
-    {"mean_shift_backward": (P, P, P, P, P, P, P, P, P, I32, I32, P)})
+    {"mean_shift_backward": (P, P, P, P, P, P, P, P, P, P, P, I32, I32,
+                             P)})
 
 D = 128        # embedding width the kernels take
 ROW_TILE = 32  # N must be a multiple of this
@@ -61,6 +62,19 @@ def mean_shift_step_bwd_plain(q, X, bw2, m, s, g):
     return dq, dX
 
 
+def live_rows(g: torch.Tensor):
+    """The live rows of a cotangent ``g [B, N, D]``, those with a nonzero
+    entry, as the backward kernel takes them: ``order [B, N]`` int32, each
+    shape's live rows first in ascending id, then the others, and ``count
+    [B]`` int32.  A row that is not live adds exactly nothing to the
+    backward (``c_i = 0``, ``t_ij = 0``).  Device ops only: ``count`` is
+    never read on the host, so no synchronization."""
+    live = (g != 0).any(dim=-1)
+    order = torch.argsort(live.logical_not().to(torch.uint8), dim=-1,
+                          stable=True).to(torch.int32)
+    return order, live.sum(dim=-1, dtype=torch.int32)
+
+
 def _check_shapes(q, X, bw2):
     for name, t in (("q", q), ("X", X)):
         check_cuda(f"mean_shift {name}", t, torch.float32, 3)
@@ -89,7 +103,8 @@ def mean_shift_step_fwd(q: torch.Tensor, X: torch.Tensor,
 
 def mean_shift_step_bwd(q, X, bw2, m, s, g):
     """``(dq, dX)`` for the cotangent ``g [B, N, D]`` of ``m``: the
-    backward kernel for CUDA tensors, the plain version for CPU tensors."""
+    backward kernel for CUDA tensors, over the live rows of ``g`` only
+    (:func:`live_rows`), the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return mean_shift_step_bwd_plain(q, X, bw2, m, s, g)
     _check_shapes(q, X, bw2)
@@ -104,10 +119,12 @@ def mean_shift_step_bwd(q, X, bw2, m, s, g):
     dq = torch.empty_like(X)
     dX = torch.empty_like(X)
     c = torch.empty((B, N), dtype=torch.float32, device=X.device)
+    order, count = live_rows(g)
     BWD_KERNEL.launch("mean_shift_backward", q.data_ptr(), X.data_ptr(),
                       bw2.data_ptr(), m.data_ptr(), s.data_ptr(),
-                      g.data_ptr(), c.data_ptr(), dq.data_ptr(),
-                      dX.data_ptr(), B, N, stream_handle(X))
+                      g.data_ptr(), order.data_ptr(), count.data_ptr(),
+                      c.data_ptr(), dq.data_ptr(), dX.data_ptr(), B, N,
+                      stream_handle(X))
     return dq, dX
 
 
