@@ -6,10 +6,13 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds every hand-written kernel from ``prifit_torch/kernels/csrc``,
 holds each against its plain PyTorch version at the shapes the main paths
 give it (and times both, with a one-call PyTorch yardstick where one
-exists): FPS, gather, bandwidth, the mean-shift forward (for q = X and
-for q one step from X) and backward (for a dense cotangent, for 1 and 25
-live rows a shape, against the plain version evaluated in float64, and
-for a zero cotangent) and NMS; the K-max backward pair
+exists): FPS, gather (with int64 and int32 indices, and each call's
+device-only time from the profiler), bandwidth, the mean-shift forward
+(for q = X and for q one step from X) and backward (for a dense
+cotangent, for 1 and 25 live rows a shape, against the plain version
+evaluated in float64, and for a zero cotangent) and NMS (on duplicated
+anchors, converged modes, distinct rows and a bandwidth below every
+self-distance); the K-max backward pair
 (``max_bwd_cnt_gsm``, ``max_bwd_dz``) at the six K-max regions' shapes
 with stochastic rounding on and off, bit for bit; and the ``sr_bf16``
 cast at the sizes one ``mxsr`` step casts, bit for bit.  It drives the
@@ -41,7 +44,10 @@ convex loss in the embeddings on structured embeddings.  It prints:
     plain version, library call) beside the least time the card could
     take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
     false); the mean-shift backward's row also has, under ``sparse``, the
-    same numbers for cotangents live in 1 and in 25 rows a shape;
+    same numbers for cotangents live in 1 and in 25 rows a shape, NMS's
+    under ``inputs`` its numbers on each of its four inputs, and the
+    gather's its device-only time (``device_ms``) and its time with int32
+    indices (``int32_ms``);
   - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
@@ -141,7 +147,36 @@ def check_fps():
                 library_ms=None, bound=bound_ms(byt, ops))
 
 
+def device_ms(fn, match, reps=5):
+    """Device-only milliseconds of each kernel whose name holds ``match``
+    that one ``fn()`` launches, from ``torch.profiler``'s kernel events
+    over ``reps`` calls after a warm-up: a list, in launch order, of the
+    mean over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and match in e.name), key=lambda e: e.time_range.start)]
+    if not us or len(us) % reps:
+        raise AssertionError(f"profiler saw {len(us)} '{match}' kernels in "
+                             f"{reps} calls")
+    per = len(us) // reps
+    return [sum(us[i::per]) / reps / 1e3 for i in range(per)]
+
+
 def check_gather():
+    """The ten gathers of one forward (sa1: xyz and points per scale;
+    sa2: the projected features per scale; fp2 and fp1: 3-NN features),
+    bit-equal to the plain version with the int64 indices the callers
+    pass and with int32 ones.  Times the ten calls with each index type,
+    and with int64 each call's device-only time from the profiler, beside
+    the plain version and ``torch.gather`` on the same inputs."""
     from prifit_torch.kernels import gather
     gen = torch.Generator().manual_seed(2)
     xyz = torch.randn((B, N, 3), generator=gen).cuda()
@@ -152,34 +187,41 @@ def check_gather():
     def idx(n, *shape):
         return torch.randint(0, n, (B,) + shape, generator=gen).cuda()
 
-    # the ten gathers of one forward (sa1: xyz and points per scale; sa2:
-    # the projected features per scale; fp2 and fp1: 3-NN features)
     calls = [(xyz, idx(N, 512, k)) for k in (32, 32, 64, 64, 128, 128)]
     calls += [(pre2, idx(512, 128, 64)), (pre2, idx(512, 128, 128)),
               (f2, idx(128, 512, 3)), (f1, idx(512, N, 3))]
-    for t, i in calls:
+    calls32 = [(t, i.int()) for t, i in calls]
+    for t, i in calls + calls32:
         got = gather.gather_rows(t, i)
         ref = gather.gather_plain(t, i)
         if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
             raise AssertionError(f"gather differs at {tuple(t.shape)} / "
-                                 f"{tuple(i.shape)}")
+                                 f"{tuple(i.shape)} {i.dtype}")
     lib_idx = [(t, i.reshape(B, -1, 1).expand(-1, -1, t.shape[-1]))
                for t, i in calls]
-    # per call: table read once, int32 indices read once, output written
+    # per call: table read once, int64 indices read once, output written
     # once
-    call_bytes = [nbytes(t) + i.numel() * 4 + i.numel() * t.shape[-1]
-                  * t.element_size() for t, i in calls]
-    for (t, i), (_, li), byt in zip(calls, lib_idx, call_bytes):
+    call_bytes = [nbytes(t, i) + i.numel() * t.shape[-1] * t.element_size()
+                  for t, i in calls]
+    dev = device_ms(lambda: [gather.gather_rows(t, i) for t, i in calls],
+                    "gather_kernel")
+    for (t, i), (_, li), byt, d in zip(calls, lib_idx, call_bytes, dev):
         log(f"  gather {tuple(t.shape)} {t.dtype} by {tuple(i.shape)}: "
             f"{byt / 1e6:.2f} MB, bound_ms {bound_ms(byt, 0)[0]:.4f}, "
             f"kernel_ms {cuda_ms(lambda: gather.gather_rows(t, i)):.4f}, "
+            f"device-only {d:.4f}, "
             f"library_ms {cuda_ms(lambda: torch.gather(t, 1, li)):.4f}")
     ms = cuda_ms(lambda: [gather.gather_rows(t, i) for t, i in calls])
+    ms32 = cuda_ms(lambda: [gather.gather_rows(t, i) for t, i in calls32])
     plain_ms = cuda_ms(lambda: [gather.gather_plain(t, i)
                                 for t, i in calls])
     library_ms = cuda_ms(lambda: [torch.gather(t, 1, i) for t, i in lib_idx])
+    log(f"  gather, the ten calls: kernel_ms {ms:.4f} (int64), {ms32:.4f} "
+        f"(int32); device-only {sum(dev):.4f} (int64); library_ms "
+        f"{library_ms:.4f}")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound=bound_ms(sum(call_bytes), 0))
+                library_ms=library_ms, bound=bound_ms(sum(call_bytes), 0),
+                device_ms=sum(dev), int32_ms=ms32)
 
 
 def check_bandwidth(X):
@@ -357,32 +399,95 @@ def check_mean_shift_bwd(X, bw):
                 bound=bound_ms(byt, steps * B * N * N, tf32), sparse=rows)
 
 
-def check_nms():
-    from prifit_torch.kernels import nms
+def nms_partition(modes, outs, K=25):
+    """The slots ``nms_tail`` makes of the NMS flags ``outs``, and each
+    mode's nearest kept center, as ``cluster_batch`` labels the modes:
+    ``(labels [B, N], valid [B, K], n_distinct [B])``."""
+    from prifit_torch.clustering.mean_shift import nms_tail
+    ids, valid, n_distinct = nms_tail(*outs, K)
+    centers = torch.gather(modes, 1, ids[..., None].expand(
+        -1, -1, modes.shape[-1])) * valid[..., None]
+    sim = torch.matmul(centers, modes.transpose(-1, -2))
+    sim = torch.where(valid[..., None], sim, torch.full_like(sim, -1e9))
+    return torch.argmax(sim, dim=1), valid, n_distinct
+
+
+def nms_inputs(X, bw):
+    """The four inputs of the NMS phase at B=24, N=2048, D=128, with their
+    bandwidths: (a) copies of 20 unit anchors per shape; (b) modes like
+    the main path's, 10 mean-shift steps from ``X`` at ``bw``; (c) 2048
+    distinct random unit rows, every mode occupied and its own center;
+    (d) (a) with the bandwidth below every d_ii, so every score is 0 and
+    every representative mode 0, and each shape's mode 0 at half length:
+    then it is nearer to its copies than to itself and nobody's nearest,
+    so mode 0 is not occupied."""
+    from prifit_torch.clustering.mean_shift import mean_shift_iterations
     gen = torch.Generator().manual_seed(4)
     anchors = torch.randn((B, 20, 128), generator=gen)
     anchors = anchors / anchors.norm(dim=-1, keepdim=True)
     pick = torch.randint(0, 20, (B, N), generator=gen)
-    modes = torch.gather(anchors, 1, pick[..., None].expand(-1, -1, 128))
-    modes = modes.cuda().contiguous()
-    bw = torch.full((B,), 0.35, device="cuda")
-    got = nms.nms_passes(modes, bw)
-    ref = nms.nms_passes_plain(modes, bw)
-    for name, g, r in zip(("counts", "is_center", "used"), got, ref):
-        if not torch.equal(g, r):
-            raise AssertionError(f"nms {name} differs from its plain "
-                                 f"version")
-    ms = cuda_ms(lambda: nms.nms_passes(modes, bw))
-    plain_ms = cuda_ms(lambda: nms.nms_passes_plain(modes, bw), reps=3)
-    # what this data needs: every distance for the nearest-mode counts,
-    # the distance rows of the occupied modes for the representatives,
-    # and every mode's distances to the centers for the used flags
-    counts, is_center, _ = ref
-    pairs = (B * N + int((counts > 0).sum()) + int(is_center.sum())) * N
-    ops = 2 * pairs * 128
-    byt = nbytes(modes, bw) + 3 * B * N * 4
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound=bound_ms(byt, ops))
+    dup = torch.gather(anchors, 1, pick[..., None].expand(-1, -1, 128))
+    dup = dup.cuda().contiguous()
+    distinct = torch.randn((B, N, 128), generator=gen)
+    distinct = (distinct / distinct.norm(dim=-1, keepdim=True)).cuda()
+    with torch.no_grad():
+        conv = mean_shift_iterations(X, bw, 10).contiguous()
+    short = dup.clone()
+    short[:, 0] *= 0.5
+    full = lambda v: torch.full((B,), v, device="cuda")  # noqa: E731
+    return {"a_duplicates": (dup, full(0.35)),
+            "b_converged": (conv, bw.float().contiguous()),
+            "c_distinct": (distinct, full(0.35)),
+            "d_rep_zero": (short, full(-1.0))}
+
+
+def check_nms(X, bw):
+    """The three passes against their plain version on four inputs
+    (:func:`nms_inputs`): counts, is_center and used exactly equal on
+    (a), (c) and (d); on (b), where the two may differ on true rounding
+    ties of the distances (3xTF32 products against cuBLAS f32), the
+    partition ``nms_tail`` makes of them, as ``cluster_batch`` uses it
+    (the same slots' members, counts of slots and of distinct labels).
+    Times both on each input; the bound counts what the input needs:
+    every distance for pass 1, the occupied modes' distances among
+    themselves for pass 2 and every mode's to the centers for pass 3, as
+    3 TF32 products each (the f32 count beside it)."""
+    from prifit_torch.kernels import nms
+    rows = []
+    for name, (modes, b) in nms_inputs(X, bw).items():
+        got = nms.nms_passes(modes, b)
+        ref = nms.nms_passes_plain(modes, b)
+        if name == "b_converged":
+            (lg, vg, ng), (lc, vc, nc) = (nms_partition(modes, o)
+                                          for o in (got, ref))
+            if not (torch.equal(vg.sum(-1), vc.sum(-1))
+                    and torch.equal(ng, nc)):
+                raise AssertionError("nms: slot counts differ on (b)")
+            for s in range(B):
+                slot_perm(lg[s].cpu(), lc[s].cpu(), f"nms (b) shape {s}")
+        else:
+            for what, g, r in zip(("counts", "is_center", "used"), got, ref):
+                if not torch.equal(g, r):
+                    raise AssertionError(f"nms {what} differs from its "
+                                         f"plain version on {name}")
+        counts, is_center, _ = ref
+        occ = (counts > 0).sum(-1)
+        pairs = B * N * N + int((occ * occ).sum()) + N * int(is_center.sum())
+        flops = 2 * pairs * 128
+        byt = nbytes(modes, b) + 6 * B * N
+        bnd = bound_ms(byt, 0, 3 * flops)
+        rows.append(dict(
+            input=name, ms=cuda_ms(lambda: nms.nms_passes(modes, b)),
+            plain_ms=cuda_ms(lambda: nms.nms_passes_plain(modes, b),
+                             reps=3),
+            bound_ms=bnd[0], bound_by=bnd[1],
+            bound_f32_ms=bound_ms(byt, flops)[0],
+            occupied=int(occ.sum()), centers=int(is_center.sum())))
+        log(f"  nms {name}: {rows[-1]}")
+    head = rows[1]  # (b), the main path's kind of input
+    return dict(max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
+                library_ms=None, bound=(head["bound_ms"], head["bound_by"]),
+                inputs=rows)
 
 
 # (rows, K, F) of the six K-max regions of one train step at B=24, N=2048:
@@ -979,6 +1084,25 @@ def structured_embeddings(seed):
     return torch.from_numpy(X), expected
 
 
+def slot_perm(lg, lc, what):
+    """Slot labels ``lg`` and ``lc`` of the same points must make the same
+    partition: returns ``lg``'s slots and the ``lc`` slot each maps to,
+    or raises."""
+    slots = torch.unique(lg)
+    perm = []
+    for k in slots:
+        targets = torch.unique(lc[lg == k])
+        if len(targets) != 1:
+            raise AssertionError(f"{what}: a slot spans slots "
+                                 f"{targets.tolist()} of the other side")
+        perm.append(int(targets[0]))
+    perm = torch.tensor(perm)
+    if len(set(perm.tolist())) != len(slots) or not torch.equal(
+            perm[torch.searchsorted(slots, lg)], lc):
+        raise AssertionError(f"{what}: partitions differ")
+    return slots, perm
+
+
 def same_clustering(g, c, expected):
     """Card result ``g`` against CPU result ``c``: num_clusters and valid
     exactly, and equal to ``expected``; bandwidth within 1e-5 relative;
@@ -1001,19 +1125,7 @@ def same_clustering(g, c, expected):
         raise AssertionError("cluster_batch bandwidth differs card vs cpu")
     w_err = c_err = 0.0
     for b in range(B):
-        lg, lc = g.labels[b], c.labels[b]
-        slots = torch.unique(lg)
-        perm = []
-        for k in slots:
-            targets = torch.unique(lc[lg == k])
-            if len(targets) != 1:
-                raise AssertionError(f"shape {b}: a card slot spans CPU "
-                                     f"slots {targets.tolist()}")
-            perm.append(int(targets[0]))
-        perm = torch.tensor(perm)
-        if len(set(perm.tolist())) != len(slots) or not torch.equal(
-                perm[torch.searchsorted(slots, lg)], lc):
-            raise AssertionError(f"shape {b}: partitions differ")
+        slots, perm = slot_perm(g.labels[b], c.labels[b], f"shape {b}")
         w_err = max(w_err, (g.weights[b][:, slots] - c.weights[b][:, perm])
                     .abs().max().item())
         c_err = max(c_err, (g.centers[b][slots] - c.centers[b][perm])
@@ -1040,6 +1152,10 @@ def clusters_card_vs_cpu(entry):
     return same_clustering(g, c, expected), expected
 
 
+# per-kernel numbers beyond the common ones: the mean-shift backward's on
+# sparse cotangents, NMS's on each input, the gather's device-only time and
+# its time with int32 indices
+EXTRA_KEYS = ("sparse", "inputs", "device_ms", "int32_ms")
 # what each kernel phase times
 CALLS_OF = {"mean_shift_bwd": "one self-sup step",
             "max_bwd_cnt_gsm": "one mxsr train step",
@@ -1092,7 +1208,7 @@ def main():
     bw = torch.sqrt(torch.clamp_min(kth[:, 0], 1e-6)).mean(-1)
     results["mean_shift"] = check_mean_shift(X, bw)
     results["mean_shift_bwd"] = check_mean_shift_bwd(X, bw)
-    results["nms"] = check_nms()
+    results["nms"] = check_nms(X, bw)
     del X, kth
     results.update(check_max_bwd())
     log_kernels(results, smi)
@@ -1173,7 +1289,7 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
-            **({"sparse": r["sparse"]} if "sparse" in r else {})))
+            **{k: r[k] for k in EXTRA_KEYS if k in r}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

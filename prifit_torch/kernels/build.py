@@ -119,10 +119,12 @@ def library(name: str) -> ctypes.CDLL:
 
 def stream_handle(t) -> int:
     """The current CUDA stream of ``t``'s device, as the C entry points
-    take it."""
+    take it: PyTorch's raw-stream query, which skips building the
+    ``torch.cuda.Stream`` object that ``torch.cuda.current_stream`` makes
+    on every launch."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_cuda(name: str, t, dtype=None, ndim=None, align: int = 16

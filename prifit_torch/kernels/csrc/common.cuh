@@ -40,17 +40,8 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    merge_min(v, i, ov, oi);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Distance rows of the clustering kernels (bandwidth, NMS).
+// Distance rows of the bandwidth kernel.
 //
 // The embeddings are [n, kD] f32 unit vectors.  A block owns ROWS query rows
 // and writes dist[r][j] = 2 - 2 <x_{row0+r}, x_j> for every j into shared

@@ -1,6 +1,7 @@
-// Tensor-core building blocks of the mean-shift kernels (mean_shift.cu,
-// mean_shift_bwd.cu): 3xTF32 products with mma.sync m16n8k8, cp.async
-// copies into shared memory, and the fragment layouts they use.
+// Tensor-core building blocks of the mean-shift and NMS kernels
+// (mean_shift.cu, mean_shift_bwd.cu, nms.cu): 3xTF32 products with mma.sync
+// m16n8k8, cp.async copies into shared memory, and the fragment layouts
+// they use.
 //
 // 3xTF32: each f32 operand is split a = hi + lo, hi = tf32(a) rounded to
 // nearest and lo = a - hi (split_tf32), and a product is taken as

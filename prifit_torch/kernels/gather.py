@@ -4,12 +4,15 @@ transpose."""
 
 import torch
 
-from prifit_torch.kernels.build import I32, I64, P, Kernel, check_cuda, \
+from prifit_torch.kernels.build import I32, P, Kernel, check_cuda, \
     stream_handle
 
 KERNEL = Kernel(
     "gather", "prifit_tpu/ops/pallas/gather.py:116",
-    {"gather_rows": (P, P, P, I32, I32, I64, I32, P)})
+    {"gather_rows_i32": (P, P, P, I32, I32, I32, I32, P),
+     "gather_rows_i64": (P, P, P, I32, I32, I32, I32, P)})
+ENTRY = {torch.int32: "gather_rows_i32", torch.int64: "gather_rows_i64"}
+LIMIT = 2 ** 31  # bytes of a shape's table and of its output
 
 
 def gather_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -22,22 +25,26 @@ def gather_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_fwd(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The gather alone, with no autograd: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor.  The kernel reads ``idx`` in its
+    own type, int32 or int64, with no copy when it is contiguous."""
     if points.device.type == "cpu":
         return gather_plain(points, idx)
     check_cuda("gather points", points, ndim=3, align=2)
     B, N, C = points.shape
     row_bytes = C * points.element_size()
-    if idx.device != points.device or idx.shape[0] != B or row_bytes % 2:
+    R = idx.numel() // B if B else 0
+    if (idx.device != points.device or idx.dtype not in ENTRY
+            or idx.shape[0] != B or row_bytes % 2
+            or N * row_bytes >= LIMIT or R * row_bytes >= LIMIT):
         raise ValueError(f"gather: unsupported table {tuple(points.shape)}"
-                         f" {points.dtype} / index {tuple(idx.shape)} on "
-                         f"{idx.device}")
-    flat = idx.reshape(B, -1).to(torch.int32).contiguous()
-    R = flat.shape[1]
-    out = torch.empty((B, R, C), dtype=points.dtype, device=points.device)
-    KERNEL.launch("gather_rows", points.data_ptr(), flat.data_ptr(),
+                         f" {points.dtype} / index {tuple(idx.shape)} "
+                         f"{idx.dtype} on {idx.device}")
+    idx = idx.contiguous()
+    out = torch.empty(idx.shape + (C,), dtype=points.dtype,
+                      device=points.device)
+    KERNEL.launch(ENTRY[idx.dtype], points.data_ptr(), idx.data_ptr(),
                   out.data_ptr(), B, N, R, row_bytes, stream_handle(points))
-    return out.reshape(idx.shape + (C,))
+    return out
 
 
 def scatter_accumulate(n: int, idx: torch.Tensor, g: torch.Tensor,
@@ -76,5 +83,8 @@ def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``[B, ..., C]``, bit-exact, differentiable in ``points``.
 
     Launches the kernel for a CUDA tensor; a CPU tensor takes the plain
-    version.  The backward is the f32 scatter-add on both."""
-    return GatherRows.apply(points, idx)
+    version.  The backward is the f32 scatter-add on both; where no
+    gradient is wanted the call skips the autograd function's host work."""
+    if torch.is_grad_enabled() and points.requires_grad:
+        return GatherRows.apply(points, idx)
+    return gather_fwd(points, idx)

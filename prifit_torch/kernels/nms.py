@@ -48,12 +48,39 @@ def _any_at(index: torch.Tensor, flag: torch.Tensor, n: int
     return hits > 0
 
 
+def nms_passes_compact_plain(modes: torch.Tensor, bw: torch.Tensor):
+    """:func:`nms_passes_plain` computed as the kernels do: passes 2 and
+    3 shape by shape over the listed modes only, in ascending index order
+    (pass 2: the occupied rows against the occupied columns, with rep 0
+    where every score is 0; pass 3: every row against the center
+    columns).  Equal to :func:`nms_passes_plain` wherever the distances
+    of the sub-products round as those of the full one; for the tests."""
+    B, N, _ = modes.shape
+    assign = torch.argmin(chordal_sqdist(modes, modes), dim=-1)
+    counts = torch.zeros((B, N), dtype=torch.float32, device=modes.device)
+    counts.scatter_add_(1, assign, torch.ones_like(counts))
+    is_center = torch.zeros((B, N), dtype=torch.bool, device=modes.device)
+    used = torch.zeros_like(is_center)
+    for b in range(B):
+        occ = torch.nonzero(counts[b] > 0)[:, 0]
+        m = modes[b, occ]
+        score = torch.where(chordal_sqdist(m, m) < bw[b], counts[b, occ],
+                            0.0)
+        rep = occ[torch.argmax(score, dim=-1)]
+        is_center[b, torch.where(score.amax(-1) > 0, rep, 0)] = True
+        cen = torch.nonzero(is_center[b])[:, 0]
+        label = torch.argmin(chordal_sqdist(modes[b], modes[b, cen]), dim=-1)
+        used[b, cen[label]] = True
+    return counts, is_center, used
+
+
 def nms_passes(modes: torch.Tensor, bw: torch.Tensor):
     """``modes [B, N, D]`` unit rows, ``bw [B]`` -> ``(counts [B, N] f32,
     is_center [B, N] bool, used [B, N] bool)``.
 
-    Launches the three kernels for a CUDA tensor; a CPU tensor takes the
-    plain version."""
+    Launches the three kernels for a CUDA tensor, which write these
+    outputs in place (one zero fill of one buffer before them); a CPU
+    tensor takes the plain version."""
     if modes.device.type == "cpu":
         return nms_passes_plain(modes, bw)
     check_cuda("nms modes", modes, torch.float32, 3)
@@ -62,9 +89,10 @@ def nms_passes(modes: torch.Tensor, bw: torch.Tensor):
     if bw.shape[0] != B or d != D or N % ROW_TILE:
         raise ValueError(f"nms: unsupported shapes {tuple(modes.shape)} / "
                          f"{tuple(bw.shape)}")
-    counts = torch.zeros((B, N), dtype=torch.int32, device=modes.device)
-    is_center = torch.zeros_like(counts)
-    used = torch.zeros_like(counts)
+    out = torch.zeros(6 * B * N, dtype=torch.uint8, device=modes.device)
+    counts = out[:4 * B * N].view(torch.float32).view(B, N)
+    is_center = out[4 * B * N:5 * B * N].view(torch.bool).view(B, N)
+    used = out[5 * B * N:].view(torch.bool).view(B, N)
     stream = stream_handle(modes)
     KERNEL.launch("nms_counts", modes.data_ptr(), counts.data_ptr(), B, N,
                   stream)
@@ -72,4 +100,4 @@ def nms_passes(modes: torch.Tensor, bw: torch.Tensor):
                   bw.data_ptr(), is_center.data_ptr(), B, N, stream)
     KERNEL.launch("nms_used", modes.data_ptr(), is_center.data_ptr(),
                   used.data_ptr(), B, N, stream)
-    return counts.float(), is_center > 0, used > 0
+    return counts, is_center, used
