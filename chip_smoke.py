@@ -7,7 +7,8 @@ It builds every hand-written kernel from ``prifit_torch/kernels/csrc``,
 holds each against its plain PyTorch version at the shapes the main paths
 give it (and times both, with a one-call PyTorch yardstick where one
 exists): FPS, gather (with int64 and int32 indices, and each call's
-device-only time from the profiler), bandwidth, the mean-shift forward
+device-only time from the profiler), bandwidth (also on rows that are all
+equal, and with 5 ranks), the mean-shift forward
 (for q = X and for q one step from X) and backward (for a dense
 cotangent, for 1 and 25 live rows a shape, against the plain version
 evaluated in float64, and for a zero cotangent) and NMS (on duplicated
@@ -15,7 +16,10 @@ anchors, converged modes, distinct rows and a bandwidth below every
 self-distance); the K-max backward pair
 (``max_bwd_cnt_gsm``, ``max_bwd_dz``) at the six K-max regions' shapes
 with stochastic rounding on and off, bit for bit; and the ``sr_bf16``
-cast at the sizes one ``mxsr`` step casts, bit for bit.  It drives the
+cast at the sizes one ``mxsr`` step casts, bit for bit.  It holds the
+four clustering kernels at other shapes too (B=4 at N=2500 with widths 8,
+13 and 128, and N=50 with width 128; bandwidth at N=8192), each against
+its plain version with the same limits.  It drives the
 port's main paths through ``prifit_torch.entry``, each with the launch
 counts set to 0 just before it and read just after:
 
@@ -29,7 +33,8 @@ counts set to 0 just before it and read just after:
 It checks that every kernel was launched by the paths that run it, and
 no other.  Then it compares, card against CPU: a B=2 eval forward;
 ``cluster_batch`` at the main path's shapes on structured embeddings
-(several clusters per shape; the per-shape retry on some); one B=2 f32
+(several clusters per shape; the per-shape retry on some) and at B=4,
+N=2500 on 8-wide embeddings like the fitting demo's; one B=2 f32
 supervised step (loss and every gradient); one B=2 f32 self-sup step
 (losses); one B=2 ``mxsr`` supervised step with the same rounding key on
 both sides (the loss, and every gradient against the CPU's own spread
@@ -45,9 +50,11 @@ convex loss in the embeddings on structured embeddings.  It prints:
     take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
     false); the mean-shift backward's row also has, under ``sparse``, the
     same numbers for cotangents live in 1 and in 25 rows a shape, NMS's
-    under ``inputs`` its numbers on each of its four inputs, and the
+    under ``inputs`` its numbers on each of its four inputs, the
     gather's its device-only time (``device_ms``) and its time with int32
-    indices (``int32_ms``);
+    indices (``int32_ms``), and bandwidth's its f32 bound
+    (``bound_f32_ms``) and its time on rows that are all equal
+    (``equal_rows_ms``);
   - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
@@ -224,25 +231,53 @@ def check_gather():
                 device_ms=sum(dev), int32_ms=ms32)
 
 
-def check_bandwidth(X):
+def bandwidth_err(X, ks):
+    """The largest ``|kernel - plain|`` of bandwidth on ``X`` for the
+    ranks ``ks``, and the plain result.  The limit is 1e-5: 3xTF32 dots
+    against cuBLAS f32 ones, on the bisection grid of 2^-22."""
     from prifit_torch.kernels import bandwidth
-    ks = [int(0.05 * N)]
     got = bandwidth.kth_nn_distance(X, ks)
     ref = bandwidth.kth_nn_plain(X, ks)
     err = (got - ref).abs().max().item()
-    # f32 dots summed in another order than cuBLAS, against the bisection
-    # grid of 4 / 2^24
     if not err <= 1e-5:
-        raise AssertionError(f"bandwidth max abs err {err} > 1e-5")
+        raise AssertionError(f"bandwidth max abs err {err} > 1e-5 at "
+                             f"{tuple(X.shape)}, ranks {ks}")
+    return err, ref
+
+
+def check_bandwidth(X):
+    """The kernel against its plain version at the main path's rank, on
+    rows that are all equal (every key in one bin: the select's worst
+    case) at that rank, and with 5 ranks (two launches) on 4 shapes of
+    each.  Times the main path's call and the all-equal one; the bound
+    counts the products as 3 TF32 products at the TF32 rate plus the
+    keys' and the select's operations (2 a distance, and 2 a distance and
+    rank) at the f32 rate; ``bound_f32_ms`` counts the work of the
+    bisection kernel it replaced (f32 products and 24 compares a distance
+    and rank)."""
+    from prifit_torch.kernels import bandwidth
+    ks = [int(0.05 * N)]
+    err, ref = bandwidth_err(X, ks)
+    same = X[:, :1].expand(-1, N, -1).contiguous()
+    five = [1, 13, ks[0], 2 * ks[0], N]
+    for x, kk in ((same, ks), (X[:4], five), (same[:4], five)):
+        err = max(err, bandwidth_err(x, kk)[0])
     ms = cuda_ms(lambda: bandwidth.kth_nn_distance(X, ks))
+    same_ms = cuda_ms(lambda: bandwidth.kth_nn_distance(same, ks))
     plain_ms = cuda_ms(lambda: bandwidth.kth_nn_plain(X, ks), reps=3)
     # yardstick: exact k-th value of cdist^2 (a sort, not the bisection)
     library_ms = cuda_ms(lambda: torch.kthvalue(
         torch.cdist(X, X) ** 2, ks[0], dim=-1), reps=3)
-    ops = 2 * B * N * N * 128 + 24 * len(ks) * B * N * N
+    pairs = B * N * N
     byt = nbytes(X) + B * len(ks) * N * 4
+    bound = bound_ms(byt, (2 + 2 * len(ks)) * pairs, 3 * 2 * pairs * 128)
+    log(f"  bandwidth B={B} N={N}: kernel_ms {ms:.4f}, all rows equal "
+        f"{same_ms:.4f}; library_ms {library_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound=bound_ms(byt, ops)), ref
+                library_ms=library_ms, bound=bound,
+                bound_f32_ms=bound_ms(byt, 2 * pairs * 128
+                                      + 24 * len(ks) * pairs)[0],
+                equal_rows_ms=same_ms), ref
 
 
 def check_mean_shift(X, bw):
@@ -286,14 +321,15 @@ def check_mean_shift(X, bw):
                 bound=bound_ms(byt, steps * B * N * N, tf32))
 
 
-def sparse_cotangent(gen, k):
-    """A ``[B, N, 128]`` cotangent with ``k`` live (nonzero) rows per
-    shape at random ids spread over the N rows, as the self-sup path gives
-    the mean-shift backward (at most 25 live rows: the centers)."""
-    g = torch.zeros((B, N, 128))
-    for b in range(B):
-        rows = torch.randperm(N, generator=gen)[:k]
-        g[b, rows] = torch.randn((k, 128), generator=gen)
+def sparse_cotangent(gen, k, shape=(B, N, 128)):
+    """A ``shape`` cotangent with ``k`` live (nonzero) rows per shape at
+    random ids spread over the rows, as the self-sup path gives the
+    mean-shift backward (at most 25 live rows: the centers)."""
+    Bq, Nq, D = shape
+    g = torch.zeros(shape)
+    for b in range(Bq):
+        rows = torch.randperm(Nq, generator=gen)[:k]
+        g[b, rows] = torch.randn((k, D), generator=gen)
     return g.cuda()
 
 
@@ -412,33 +448,37 @@ def nms_partition(modes, outs, K=25):
     return torch.argmax(sim, dim=1), valid, n_distinct
 
 
-def nms_inputs(X, bw):
-    """The four inputs of the NMS phase at B=24, N=2048, D=128, with their
-    bandwidths: (a) copies of 20 unit anchors per shape; (b) modes like
-    the main path's, 10 mean-shift steps from ``X`` at ``bw``; (c) 2048
-    distinct random unit rows, every mode occupied and its own center;
-    (d) (a) with the bandwidth below every d_ii, so every score is 0 and
-    every representative mode 0, and each shape's mode 0 at half length:
-    then it is nearer to its copies than to itself and nobody's nearest,
-    so mode 0 is not occupied."""
+def nms_inputs(X, bw, converged=True):
+    """The four inputs of the NMS phase at ``X``'s shape (B=24, N=2048,
+    D=128 on the main path), with their bandwidths: (a) copies of 20 unit
+    anchors per shape; (b) modes like the main path's, 10 mean-shift steps
+    from ``X`` at ``bw`` (left out unless ``converged``); (c) N distinct
+    random unit rows, every mode occupied and its own center; (d) (a) with
+    the bandwidth below every d_ii, so every score is 0 and every
+    representative mode 0, and each shape's mode 0 at half length: then it
+    is nearer to its copies than to itself and nobody's nearest, so mode 0
+    is not occupied."""
     from prifit_torch.clustering.mean_shift import mean_shift_iterations
+    Bq, Nq, D = X.shape
     gen = torch.Generator().manual_seed(4)
-    anchors = torch.randn((B, 20, 128), generator=gen)
+    anchors = torch.randn((Bq, 20, D), generator=gen)
     anchors = anchors / anchors.norm(dim=-1, keepdim=True)
-    pick = torch.randint(0, 20, (B, N), generator=gen)
-    dup = torch.gather(anchors, 1, pick[..., None].expand(-1, -1, 128))
+    pick = torch.randint(0, 20, (Bq, Nq), generator=gen)
+    dup = torch.gather(anchors, 1, pick[..., None].expand(-1, -1, D))
     dup = dup.cuda().contiguous()
-    distinct = torch.randn((B, N, 128), generator=gen)
+    distinct = torch.randn((Bq, Nq, D), generator=gen)
     distinct = (distinct / distinct.norm(dim=-1, keepdim=True)).cuda()
-    with torch.no_grad():
-        conv = mean_shift_iterations(X, bw, 10).contiguous()
     short = dup.clone()
     short[:, 0] *= 0.5
-    full = lambda v: torch.full((B,), v, device="cuda")  # noqa: E731
-    return {"a_duplicates": (dup, full(0.35)),
-            "b_converged": (conv, bw.float().contiguous()),
-            "c_distinct": (distinct, full(0.35)),
-            "d_rep_zero": (short, full(-1.0))}
+    full = lambda v: torch.full((Bq,), v, device="cuda")  # noqa: E731
+    out = {"a_duplicates": (dup, full(0.35))}
+    if converged:
+        with torch.no_grad():
+            conv = mean_shift_iterations(X, bw, 10).contiguous()
+        out["b_converged"] = (conv, bw.float().contiguous())
+    out["c_distinct"] = (distinct, full(0.35))
+    out["d_rep_zero"] = (short, full(-1.0))
+    return out
 
 
 def check_nms(X, bw):
@@ -488,6 +528,78 @@ def check_nms(X, bw):
     return dict(max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
                 library_ms=None, bound=(head["bound_ms"], head["bound_by"]),
                 inputs=rows)
+
+
+# (N, D) of the ragged-shape phase, at B=4: the fitting demo's 8-wide
+# embeddings, an odd width, the model's width at a point count that is no
+# multiple of 64, and a cloud smaller than one tile
+RAGGED = [(2500, 8), (2500, 13), (2500, 128), (50, 128)]
+RB = 4
+
+
+def check_ragged_shape(gen, n, d):
+    """Bandwidth, the mean-shift forward and backward, and NMS at
+    ``[RB, n, d]``, each against its plain version with the main phases'
+    limits: bandwidth within 1e-5; the forward for q = X and q one step
+    away (m 1e-4 absolute, s 1e-4 relative); the backward for a dense
+    cotangent and for 1 live row a shape within 1e-4 of the largest entry
+    of the float64 plain version, and exact zeros for a zero cotangent;
+    NMS exactly on inputs (a) and (d) of :func:`nms_inputs` (and (c)).
+    Returns the errors."""
+    from prifit_torch.kernels import mean_shift, nms
+    X = unit_rows(gen, (RB, n, d))
+    bw_err, kth = bandwidth_err(X, [max(int(0.05 * n), 1)])
+    bw = torch.sqrt(torch.clamp_min(kth[:, 0], 1e-6)).mean(-1)
+    bw2 = (bw ** 2).contiguous()
+    m, _ = mean_shift.mean_shift_step_fwd(X, X, bw2)
+    q1 = (m / torch.linalg.norm(m, dim=-1, keepdim=True)).contiguous()
+    fwd_err = 0.0
+    for q in (X, q1):
+        m, s = mean_shift.mean_shift_step_fwd(q, X, bw2)
+        mr, sr = mean_shift.mean_shift_step_plain(q, X, bw2)
+        e = (m - mr).abs().max().item()
+        serr = ((s - sr).abs() / sr).max().item()
+        if not (e <= 1e-4 and serr <= 1e-4):
+            raise AssertionError(f"mean_shift at {(RB, n, d)}: max abs err "
+                                 f"{e}, s rel err {serr}")
+        fwd_err = max(fwd_err, e)
+    m, s = mean_shift.mean_shift_step_fwd(X, X, bw2)
+    bwd_err = 0.0
+    for g in (torch.randn((RB, n, d), generator=gen).cuda(),
+              sparse_cotangent(gen, 1, (RB, n, d))):
+        got = mean_shift.mean_shift_step_bwd(X, X, bw2, m, s, g)
+        e, top, _, _ = bwd_plain_err(got, X, bw2, m, s, g)
+        if not e <= 1e-4 * top:
+            raise AssertionError(f"mean_shift_bwd at {(RB, n, d)}: max abs "
+                                 f"err {e} (largest entry {top})")
+        bwd_err = max(bwd_err, e / top)
+    zero = mean_shift.mean_shift_step_bwd(X, X, bw2, m, s,
+                                          torch.zeros_like(X))
+    if any(bool(t.any()) for t in zero):
+        raise AssertionError(f"mean_shift_bwd of a zero cotangent is not "
+                             f"zero at {(RB, n, d)}")
+    for name, (modes, b) in nms_inputs(X, bw, converged=False).items():
+        for what, g, r in zip(("counts", "is_center", "used"),
+                              nms.nms_passes(modes, b),
+                              nms.nms_passes_plain(modes, b)):
+            if not torch.equal(g, r):
+                raise AssertionError(f"nms {what} differs from its plain "
+                                     f"version on {name} at {(RB, n, d)}")
+    return dict(bandwidth=bw_err, mean_shift=fwd_err,
+                mean_shift_bwd_of_top=bwd_err)
+
+
+def check_ragged():
+    """:func:`check_ragged_shape` at each of :data:`RAGGED`, then
+    bandwidth alone at the largest N the kernels take, 8192 (D=128)."""
+    gen = torch.Generator().manual_seed(11)
+    for n, d in RAGGED:
+        log(f"  ragged B={RB} N={n} D={d}: max errors "
+            f"{check_ragged_shape(gen, n, d)} (nms exact)")
+    big = 8192
+    X = unit_rows(gen, (RB, big, 128))
+    err, _ = bandwidth_err(X, [int(0.05 * big)])
+    log(f"  ragged B={RB} N={big} D=128: bandwidth max abs err {err:.3g}")
 
 
 # (rows, K, F) of the six K-max regions of one train step at B=24, N=2048:
@@ -1124,7 +1236,7 @@ def same_clustering(g, c, expected):
     if not torch.allclose(g.bandwidth, c.bandwidth, rtol=1e-5, atol=0):
         raise AssertionError("cluster_batch bandwidth differs card vs cpu")
     w_err = c_err = 0.0
-    for b in range(B):
+    for b in range(g.labels.shape[0]):
         slots, perm = slot_perm(g.labels[b], c.labels[b], f"shape {b}")
         w_err = max(w_err, (g.weights[b][:, slots] - c.weights[b][:, perm])
                     .abs().max().item())
@@ -1136,26 +1248,43 @@ def same_clustering(g, c, expected):
     return w_err, c_err
 
 
-def clusters_card_vs_cpu(entry):
-    """``cluster_batch`` at the main path's shapes and settings on
-    structured embeddings, on the card (the three clustering kernels,
-    multi-cluster NMS and the retry) and on the CPU (plain versions)."""
+def clusters_card_vs_cpu(entry, X, expected):
+    """``cluster_batch`` at the main path's settings on embeddings ``X``
+    with the cluster counts ``expected``, on the card (the three
+    clustering kernels, multi-cluster NMS and the retry) and on the CPU
+    (plain versions): :func:`same_clustering`."""
     from prifit_torch.clustering.mean_shift import cluster_batch
     kw = entry.BENCH_KWARGS
-    X, expected = structured_embeddings(5)
     g, c = (cluster_batch(X.to(dev), quantile=kw["quantile"],
                           iterations=kw["msc_iterations"],
                           max_num_clusters=kw["max_num_clusters"],
                           num_candidates=kw["num_bandwidth_candidates"])
             for dev in ("cuda", "cpu"))
     g = type(g)(*(t.cpu() for t in g))
-    return same_clustering(g, c, expected), expected
+    return same_clustering(g, c, expected)
+
+
+def narrow_embeddings(seed, shape=(RB, 2500, 8), sizes=(2, 3, 5, 8)):
+    """``shape`` embeddings as the fitting demo makes them, one-hot-like
+    rows of width 8: shape b has ``sizes[b]`` equal clusters around
+    orthogonal directions (magnitude 4, noise 0.15, shuffled), with the
+    expected cluster counts."""
+    rng = np.random.default_rng(seed)
+    Bq, Nq, D = shape
+    X = np.empty(shape, np.float32)
+    for b, k in enumerate(sizes):
+        lab = rng.permutation(np.arange(Nq) % k)
+        X[b] = 4.0 * np.eye(D, dtype=np.float32)[lab] + rng.normal(
+            size=(Nq, D)) * 0.15
+    return torch.from_numpy(X), list(sizes)
 
 
 # per-kernel numbers beyond the common ones: the mean-shift backward's on
 # sparse cotangents, NMS's on each input, the gather's device-only time and
-# its time with int32 indices
-EXTRA_KEYS = ("sparse", "inputs", "device_ms", "int32_ms")
+# its time with int32 indices, bandwidth's f32 bound and its time on rows
+# that are all equal
+EXTRA_KEYS = ("sparse", "inputs", "device_ms", "int32_ms", "bound_f32_ms",
+              "equal_rows_ms")
 # what each kernel phase times
 CALLS_OF = {"mean_shift_bwd": "one self-sup step",
             "max_bwd_cnt_gsm": "one mxsr train step",
@@ -1210,6 +1339,7 @@ def main():
     results["mean_shift_bwd"] = check_mean_shift_bwd(X, bw)
     results["nms"] = check_nms(X, bw)
     del X, kth
+    check_ragged()
     results.update(check_max_bwd())
     log_kernels(results, smi)
 
@@ -1226,10 +1356,12 @@ def main():
     err, nc, lg, lc = card_vs_cpu(entry)
     log(f"card vs cpu B=2: logits max abs err {err:.3g}, num_clusters "
         f"{nc}, total_loss {lg:.6f} (card) {lc:.6f} (cpu)")
-    (w_err, c_err), nc = clusters_card_vs_cpu(entry)
-    log(f"card vs cpu cluster_batch B={B} N={N} D=128, structured: "
-        f"num_clusters {nc} equal, same partitions, weights err "
-        f"{w_err:.3g}, centers err {c_err:.3g}")
+    for what, (X, nc) in (("structured", structured_embeddings(5)),
+                          ("narrow", narrow_embeddings(12))):
+        w_err, c_err = clusters_card_vs_cpu(entry, X, nc)
+        log(f"card vs cpu cluster_batch {tuple(X.shape)}, {what}: "
+            f"num_clusters {nc} equal, same partitions, weights err "
+            f"{w_err:.3g}, centers err {c_err:.3g}")
 
     train = {dt: train_path(entry, kernels, dt) for dt in ("auto", "f32")}
     for dt, tr in train.items():

@@ -1,18 +1,19 @@
-"""K-th nearest chordal distance by counting bisection: CUDA kernel
-(``csrc/bandwidth.cu``) and plain PyTorch version."""
+"""K-th nearest chordal distance: CUDA kernel (``csrc/bandwidth.cu``, a
+radix select over the bisection's integer keys) and plain PyTorch version
+(the counting bisection, its oracle)."""
 
 import torch
 
 from prifit_torch.kernels.build import I32, P, Kernel, check_cuda, \
     stream_handle
+from prifit_torch.kernels.shapes import padded_width
 
 KERNEL = Kernel(
     "bandwidth", "prifit_tpu/ops/pallas/bandwidth.py:69",
-    {"kth_nn_distance": (P, P, I32, I32, I32, I32, I32, I32, I32, P)})
+    {"kth_nn_distance": (P, P, I32, I32, I32, I32, I32, I32, I32, I32, I32,
+                         I32, P)})
 
-D = 128        # embedding width the kernel takes
-ROW_TILE = 64  # N must be a multiple of this
-MAX_RANKS = 4
+RANKS_PER_LAUNCH = 4
 ITERS = 24
 
 
@@ -48,19 +49,21 @@ def kth_nn_distance(X: torch.Tensor, ks) -> torch.Tensor:
     """``X [B, N, D]`` unit rows, ``ks`` ranks -> ``[B, C, N]`` K-th
     smallest squared chordal distance of each row, for each rank.
 
-    Launches the kernel for a CUDA tensor; a CPU tensor takes the plain
-    version."""
+    Launches the kernel for a CUDA tensor, once for every 4 ranks; a CPU
+    tensor takes the plain version.  Raises ``ValueError`` for D > 128 or
+    N > 8192 (``shapes.padded_width``)."""
     ks = [int(k) for k in ks]
     if X.device.type == "cpu":
         return kth_nn_plain(X, ks)
     check_cuda("bandwidth X", X, torch.float32, 3)
     B, N, d = X.shape
-    if d != D or N % ROW_TILE or not 1 <= len(ks) <= MAX_RANKS:
-        raise ValueError(f"bandwidth: unsupported shape {tuple(X.shape)} "
-                         f"with {len(ks)} ranks")
+    dp = padded_width("bandwidth", N, d)
     out = torch.empty((B, len(ks), N), dtype=torch.float32,
                       device=X.device)
-    kk = ks + [0] * (MAX_RANKS - len(ks))
-    KERNEL.launch("kth_nn_distance", X.data_ptr(), out.data_ptr(), B, N,
-                  len(ks), *kk, stream_handle(X))
+    stream = stream_handle(X)
+    for c0 in range(0, len(ks), RANKS_PER_LAUNCH):
+        group = ks[c0:c0 + RANKS_PER_LAUNCH]
+        kk = group + [0] * (RANKS_PER_LAUNCH - len(group))
+        KERNEL.launch("kth_nn_distance", X.data_ptr(), out[:, c0].data_ptr(),
+                      len(ks) * N, B, N, d, dp, len(group), *kk, stream)
     return out

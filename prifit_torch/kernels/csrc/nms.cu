@@ -14,6 +14,11 @@
 // _rep_kernel and _used_kernel (nms_passes_pallas), which take bf16 operands;
 // here the products are 3xTF32 (about f32 accuracy).
 //
+// Any width d <= 128 and any n: rows are held padded with zeros to DP (the
+// kernel's template width, tf32_mma.cuh).  Columns past ncols (a zero row
+// in the last tile) are skipped before any merge, so none can win an
+// argmin or argmax, and rows past nrows write nothing.
+//
 // Bound on the H100: operations.  Pass 1 needs every distance, n^2 D
 // multiply-adds a shape.  Passes 2 and 3 need far fewer, and do only those:
 // a nonzero score needs counts_j > 0, so pass 2's argmax over the occupied
@@ -45,14 +50,14 @@ constexpr int kRowsN = 64;  // rows a block owns
 constexpr int kColsN = 64;  // columns per streamed tile
 constexpr int kWarpsN = kRowsN / 16;
 constexpr int kThreadsN = 32 * kWarpsN;
-constexpr int kTileN = kColsN * kD;
 
 enum Pass { kCounts, kCenters, kUsed };
 
 // Dynamic shared memory: the row fragments, two column tiles and, for
 // passes 2 and 3, the list of n ints.
+template <int DP>
 size_t smem_bytes(int pass, int n) {
-  return sizeof(float) * (kRowsN * kD + 2 * kTileN) +
+  return sizeof(float) * (kRowsN * DP + 2 * kColsN * DP) +
          (pass == kCounts ? 0 : sizeof(int) * (size_t)n);
 }
 
@@ -82,19 +87,21 @@ __device__ int compact(int n, Flag flag, int* list) {
   return base;
 }
 
-template <int kPass>
+template <int kPass, int DP, bool kFull>
 __global__ void __launch_bounds__(kThreadsN, 2)
     nms_kernel(const float* __restrict__ modes, float* __restrict__ counts,
                const float* __restrict__ bw, uint8_t* __restrict__ is_center,
-               uint8_t* __restrict__ used, int n) {
+               uint8_t* __restrict__ used, int n, int d) {
+  if (kFull) d = DP;  // a constant from here on
+  constexpr int kTileN = kColsN * DP;
   extern __shared__ __align__(16) float smem[];
-  float* qf = smem;                 // [kRowsN * kD] A fragments of the rows
-  float* xs = smem + kRowsN * kD;   // [2][kColsN][kD] tiles of the columns
+  float* qf = smem;                 // [kRowsN * DP] A fragments of the rows
+  float* xs = smem + kRowsN * DP;   // [2][kColsN][DP] tiles of the columns
   int* list = reinterpret_cast<int*>(xs + 2 * kTileN);  // [n], passes 2, 3
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * kRowsN;
-  const float* mb = modes + (size_t)b * n * kD;
+  const float* mb = modes + (size_t)b * n * d;
   float* cnt = counts + (size_t)b * n;
   uint8_t* isc = is_center + (size_t)b * n;
 
@@ -115,16 +122,17 @@ __global__ void __launch_bounds__(kThreadsN, 2)
 
   auto stage = [&](int tile) {
     const int c0 = tile * kColsN;
-    stage_rows(xs + (tile & 1) * kTileN, mb, kColsN, [&](int r) {
+    stage_rows<DP>(xs + (tile & 1) * kTileN, mb, d, kColsN, [&](int r) {
       return c0 + r < ncols ? col_of(c0 + r) : -1;
     });
     cp_async_commit();
   };
   stage(0);
-  load_frag_rows(qf, mb, kRowsN, [&](int r) {
+  load_frag_rows<DP>(qf, mb, d, kRowsN, [&](int r) {
     return row0 + r < nrows ? row_of(row0 + r) : -1;
   });
-  const float4* qw = reinterpret_cast<const float4*>(qf) + warp * 16 * 32;
+  const float4* qw =
+      reinterpret_cast<const float4*>(qf) + warp * (DP / 8) * 32;
 
   // running best of rows grp and grp + 8 over this thread's columns; pass 2
   // starts at (0, 0): the oracle's argmax when every score is 0
@@ -150,13 +158,13 @@ __global__ void __launch_bounds__(kThreadsN, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
 #pragma unroll 2
-    for (int kk = 0; kk < kD / 8; ++kk) {
+    for (int kk = 0; kk < DP / 8; ++kk) {
       FragA a;
       a.set(qw[kk * 32 + lane]);
       FragB bx[kColsN / 8];
 #pragma unroll
       for (int nt = 0; nt < kColsN / 8; ++nt)
-        bx[nt] = frag_bt(xt, nt * 8, kk, grp, tig);
+        bx[nt] = frag_bt<DP>(xt, nt * 8, kk, grp, tig);
       mma_3xtf32_row<kColsN / 8>(sc, a, bx);
     }
 
@@ -196,48 +204,59 @@ __global__ void __launch_bounds__(kThreadsN, 2)
   }
 }
 
-template <int kPass>
-int launch(const void* modes, void* counts, const void* bw, void* is_center,
-           void* used, int b, int n, void* stream) {
+template <int kPass, int DP, bool kFull>
+int launch_dp(const void* modes, void* counts, const void* bw,
+              void* is_center, void* used, int b, int n, int d,
+              cudaStream_t stream) {
   // the kernel's dynamic shared-memory limit, raised once per process (and
   // again only for a larger n)
   static size_t allowed = 0;
-  const size_t smem = smem_bytes(kPass, n);
+  const size_t smem = smem_bytes<DP>(kPass, n);
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nms_kernel<kPass>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        nms_kernel<kPass, DP, kFull>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     allowed = smem;
   }
-  nms_kernel<kPass><<<dim3((n + kRowsN - 1) / kRowsN, b), kThreadsN, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  nms_kernel<kPass, DP, kFull><<<dim3((n + kRowsN - 1) / kRowsN, b),
+                                 kThreadsN, smem, stream>>>(
       static_cast<const float*>(modes), static_cast<float*>(counts),
       static_cast<const float*>(bw), static_cast<uint8_t*>(is_center),
-      static_cast<uint8_t*>(used), n);
+      static_cast<uint8_t*>(used), n, d);
   return (int)cudaGetLastError();
+}
+
+template <int kPass>
+int launch(const void* modes, void* counts, const void* bw, void* is_center,
+           void* used, int b, int n, int d, int dp, void* stream) {
+  return with_width(d, dp, [&](auto w, auto full) {
+    return launch_dp<kPass, decltype(w)::value, decltype(full)::value>(
+        modes, counts, bw, is_center, used, b, n, d,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // namespace
 
-// modes [b, n, 128] f32 unit rows; bw [b] f32.  counts [b, n] f32,
-// is_center and used [b, n] bool, zeroed by the caller; the passes run in
-// this order on one stream.
+// modes [b, n, d] f32 unit rows; bw [b] f32; dp the padded width (32, 64
+// or 128, at least d).  counts [b, n] f32, is_center and used [b, n] bool,
+// zeroed by the caller; the passes run in this order on one stream.
 PRIFIT_API int nms_counts(const void* modes, void* counts, int b, int n,
-                          void* stream) {
-  return launch<kCounts>(modes, counts, nullptr, nullptr, nullptr, b, n,
-                         stream);
+                          int d, int dp, void* stream) {
+  return launch<kCounts>(modes, counts, nullptr, nullptr, nullptr, b, n, d,
+                         dp, stream);
 }
 
 PRIFIT_API int nms_centers(const void* modes, const void* counts,
                            const void* bw, void* is_center, int b, int n,
-                           void* stream) {
+                           int d, int dp, void* stream) {
   return launch<kCenters>(modes, const_cast<void*>(counts), bw, is_center,
-                          nullptr, b, n, stream);
+                          nullptr, b, n, d, dp, stream);
 }
 
 PRIFIT_API int nms_used(const void* modes, const void* is_center, void* used,
-                        int b, int n, void* stream) {
+                        int b, int n, int d, int dp, void* stream) {
   return launch<kUsed>(modes, nullptr, nullptr, const_cast<void*>(is_center),
-                       used, b, n, stream);
+                       used, b, n, d, dp, stream);
 }

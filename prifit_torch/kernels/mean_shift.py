@@ -7,18 +7,16 @@ import torch
 from prifit_torch.kernels.bandwidth import chordal_sqdist
 from prifit_torch.kernels.build import I32, P, Kernel, check_cuda, \
     stream_handle
+from prifit_torch.kernels.shapes import padded_width
 from prifit_torch.utils.guard import EXP_HI, EXP_LO, guard_exp
 
 KERNEL = Kernel(
     "mean_shift", "prifit_tpu/ops/pallas/mean_shift.py:158",
-    {"mean_shift_forward": (P, P, P, P, P, I32, I32, P)})
+    {"mean_shift_forward": (P, P, P, P, P, I32, I32, I32, I32, P)})
 BWD_KERNEL = Kernel(
     "mean_shift_bwd", "prifit_tpu/ops/pallas/mean_shift.py:176",
     {"mean_shift_backward": (P, P, P, P, P, P, P, P, P, P, P, I32, I32,
-                             P)})
-
-D = 128        # embedding width the kernels take
-ROW_TILE = 32  # N must be a multiple of this
+                             I32, I32, P)})
 
 
 def _exponent(q: torch.Tensor, X: torch.Tensor, bw2: torch.Tensor):
@@ -75,14 +73,17 @@ def live_rows(g: torch.Tensor):
     return order, live.sum(dim=-1, dtype=torch.int32)
 
 
-def _check_shapes(q, X, bw2):
+def _check_shapes(q, X, bw2) -> int:
+    """Raises unless the kernels take these tensors; returns the padded
+    width."""
     for name, t in (("q", q), ("X", X)):
         check_cuda(f"mean_shift {name}", t, torch.float32, 3)
     check_cuda("mean_shift bw2", bw2, torch.float32, 1)
     B, N, d = X.shape
-    if q.shape != X.shape or bw2.shape[0] != B or d != D or N % ROW_TILE:
-        raise ValueError(f"mean_shift: unsupported shapes {tuple(q.shape)}"
+    if q.shape != X.shape or bw2.shape[0] != B:
+        raise ValueError(f"mean_shift: mismatched shapes {tuple(q.shape)}"
                          f" / {tuple(X.shape)} / {tuple(bw2.shape)}")
+    return padded_width("mean_shift", N, d)
 
 
 def mean_shift_step_fwd(q: torch.Tensor, X: torch.Tensor,
@@ -91,12 +92,12 @@ def mean_shift_step_fwd(q: torch.Tensor, X: torch.Tensor,
     the plain version for a CPU tensor.  Returns ``(m, s)``."""
     if q.device.type == "cpu":
         return mean_shift_step_plain(q, X, bw2)
-    _check_shapes(q, X, bw2)
-    B, N, _ = X.shape
+    dp = _check_shapes(q, X, bw2)
+    B, N, d = X.shape
     m = torch.empty_like(X)
     s = torch.empty((B, N), dtype=torch.float32, device=X.device)
     KERNEL.launch("mean_shift_forward", q.data_ptr(), X.data_ptr(),
-                  bw2.data_ptr(), m.data_ptr(), s.data_ptr(), B, N,
+                  bw2.data_ptr(), m.data_ptr(), s.data_ptr(), B, N, d, dp,
                   stream_handle(X))
     return m, s
 
@@ -107,15 +108,15 @@ def mean_shift_step_bwd(q, X, bw2, m, s, g):
     (:func:`live_rows`), the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return mean_shift_step_bwd_plain(q, X, bw2, m, s, g)
-    _check_shapes(q, X, bw2)
+    dp = _check_shapes(q, X, bw2)
     for name, t in (("m", m), ("g", g)):
         check_cuda(f"mean_shift_bwd {name}", t, torch.float32, 3)
     check_cuda("mean_shift_bwd s", s, torch.float32, 2)
     if m.shape != X.shape or g.shape != X.shape or s.shape != X.shape[:2]:
-        raise ValueError(f"mean_shift_bwd: unsupported shapes "
+        raise ValueError(f"mean_shift_bwd: mismatched shapes "
                          f"{tuple(m.shape)} / {tuple(s.shape)} / "
                          f"{tuple(g.shape)}")
-    B, N, _ = X.shape
+    B, N, d = X.shape
     dq = torch.empty_like(X)
     dX = torch.empty_like(X)
     c = torch.empty((B, N), dtype=torch.float32, device=X.device)
@@ -123,8 +124,8 @@ def mean_shift_step_bwd(q, X, bw2, m, s, g):
     BWD_KERNEL.launch("mean_shift_backward", q.data_ptr(), X.data_ptr(),
                       bw2.data_ptr(), m.data_ptr(), s.data_ptr(),
                       g.data_ptr(), order.data_ptr(), count.data_ptr(),
-                      c.data_ptr(), dq.data_ptr(), dX.data_ptr(), B, N,
-                      stream_handle(X))
+                      c.data_ptr(), dq.data_ptr(), dX.data_ptr(), B, N, d,
+                      dp, stream_handle(X))
     return dq, dX
 
 
@@ -154,5 +155,7 @@ def mean_shift_step(q: torch.Tensor, X: torch.Tensor, bw2: torch.Tensor):
     ``X``.
 
     Launches the forward kernel for a CUDA tensor (and the backward kernel
-    when a gradient is taken); a CPU tensor takes the plain versions."""
+    when a gradient is taken); a CPU tensor takes the plain versions.
+    Raises ``ValueError`` for D > 128 or N > 8192
+    (``shapes.padded_width``)."""
     return MeanShiftStep.apply(q, X, bw2)

@@ -6,15 +6,13 @@ import torch
 from prifit_torch.kernels.bandwidth import chordal_sqdist
 from prifit_torch.kernels.build import I32, P, Kernel, check_cuda, \
     stream_handle
+from prifit_torch.kernels.shapes import padded_width
 
 KERNEL = Kernel(
     "nms", "prifit_tpu/ops/pallas/nms.py:112",
-    {"nms_counts": (P, P, I32, I32, P),
-     "nms_centers": (P, P, P, P, I32, I32, P),
-     "nms_used": (P, P, P, I32, I32, P)})
-
-D = 128        # embedding width the kernels take
-ROW_TILE = 64  # N must be a multiple of this
+    {"nms_counts": (P, P, I32, I32, I32, I32, P),
+     "nms_centers": (P, P, P, P, I32, I32, I32, I32, P),
+     "nms_used": (P, P, P, I32, I32, I32, I32, P)})
 
 
 def nms_passes_plain(modes: torch.Tensor, bw: torch.Tensor):
@@ -80,24 +78,26 @@ def nms_passes(modes: torch.Tensor, bw: torch.Tensor):
 
     Launches the three kernels for a CUDA tensor, which write these
     outputs in place (one zero fill of one buffer before them); a CPU
-    tensor takes the plain version."""
+    tensor takes the plain version.  Raises ``ValueError`` for D > 128 or
+    N > 8192 (``shapes.padded_width``)."""
     if modes.device.type == "cpu":
         return nms_passes_plain(modes, bw)
     check_cuda("nms modes", modes, torch.float32, 3)
     check_cuda("nms bw", bw, torch.float32, 1)
     B, N, d = modes.shape
-    if bw.shape[0] != B or d != D or N % ROW_TILE:
-        raise ValueError(f"nms: unsupported shapes {tuple(modes.shape)} / "
+    if bw.shape[0] != B:
+        raise ValueError(f"nms: mismatched shapes {tuple(modes.shape)} / "
                          f"{tuple(bw.shape)}")
+    dp = padded_width("nms", N, d)
     out = torch.zeros(6 * B * N, dtype=torch.uint8, device=modes.device)
     counts = out[:4 * B * N].view(torch.float32).view(B, N)
     is_center = out[4 * B * N:5 * B * N].view(torch.bool).view(B, N)
     used = out[5 * B * N:].view(torch.bool).view(B, N)
     stream = stream_handle(modes)
     KERNEL.launch("nms_counts", modes.data_ptr(), counts.data_ptr(), B, N,
-                  stream)
+                  d, dp, stream)
     KERNEL.launch("nms_centers", modes.data_ptr(), counts.data_ptr(),
-                  bw.data_ptr(), is_center.data_ptr(), B, N, stream)
+                  bw.data_ptr(), is_center.data_ptr(), B, N, d, dp, stream)
     KERNEL.launch("nms_used", modes.data_ptr(), is_center.data_ptr(),
-                  used.data_ptr(), B, N, stream)
+                  used.data_ptr(), B, N, d, dp, stream)
     return counts, is_center, used
