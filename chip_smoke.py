@@ -6,7 +6,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds every hand-written kernel from ``prifit_torch/kernels/csrc``,
 holds each against its plain PyTorch version at the shapes the main paths
 give it (and times both, with a one-call PyTorch yardstick where one
-exists): FPS, gather (with int64 and int32 indices, and each call's
+exists): FPS (indices and coordinates bit for bit, also at a ragged N, on
+an integer lattice and at its point limit, and one launch a call),
+gather (with int64 and int32 indices, and each call's
 device-only time from the profiler), bandwidth (also on rows that are all
 equal, and with 5 ranks), the mean-shift forward
 (for q = X and for q one step from X) and backward (for a dense
@@ -52,9 +54,11 @@ convex loss in the embeddings on structured embeddings.  It prints:
     same numbers for cotangents live in 1 and in 25 rows a shape, NMS's
     under ``inputs`` its numbers on each of its four inputs, the
     gather's its device-only time (``device_ms``) and its time with int32
-    indices (``int32_ms``), and bandwidth's its f32 bound
+    indices (``int32_ms``), bandwidth's its f32 bound
     (``bound_f32_ms``) and its time on rows that are all equal
-    (``equal_rows_ms``);
+    (``equal_rows_ms``), and FPS's each call's time (``per_call_ms``),
+    device-only time (``device_ms``), device microseconds a step
+    (``us_per_step``) and ``(T, P)`` (``launch_shapes``);
   - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
@@ -129,36 +133,76 @@ def unit_rows(gen, shape, n_dirs=12, noise=0.35):
 
 
 def check_fps():
+    """The two FPS calls of one forward (sa1 2048 -> 512, then sa2 on its
+    centroids 512 -> 128) with random starts from a seeded CUDA
+    generator, and three more inputs at B=4: a ragged N (2500), an integer
+    lattice (many equal distances and duplicated points) and N at the
+    kernel's limit.  Indices and coordinates bit-equal to the plain
+    version; each call is one kernel launch on the device, with no cast
+    and no gather around it (``torch.profiler``).  Times the two calls
+    beside the plain version, and each alone by CUDA events and on the
+    device alone (the profiler), per step."""
     from prifit_torch.kernels import fps
+    from prifit_torch.ops.sampling import farthest_points
     gen = torch.Generator().manual_seed(1)
+    cgen = torch.Generator(device="cuda").manual_seed(1)
     xyz1 = torch.randn((B, N, 3), generator=gen).cuda()
-    xyz2 = torch.randn((B, 512, 3), generator=gen).cuda()
-    start = torch.zeros(B, dtype=torch.int64, device="cuda")
-    calls = [(xyz1, 512), (xyz2, 128)]
-    err = 0
-    for x, npoint in calls:
+    start1 = torch.randint(0, N, (B,), generator=cgen, device="cuda")
+    start2 = torch.randint(0, 512, (B,), generator=cgen, device="cuda")
+    xyz2 = fps.fps_plain(xyz1, 512, start1)[1].contiguous()
+    calls = [(xyz1, 512, start1), (xyz2, 128, start2)]
+    lattice = torch.randint(-3, 4, (4, N, 3), generator=gen).float()
+    extra = [(torch.randn((4, 2500, 3), generator=gen).cuda(), 600),
+             (lattice.cuda(), N), (torch.randn(
+                 (4, fps.MAX_POINTS, 3), generator=gen).cuda(), 512)]
+    for x, npoint, start in calls + [
+            (x, k, torch.randint(0, x.shape[1], (4,), generator=cgen,
+                                 device="cuda")) for x, k in extra]:
         got = fps.farthest_point_sample(x, npoint, start)
         ref = fps.fps_plain(x, npoint, start)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"fps differs from its plain version at "
-                                 f"{tuple(x.shape)} -> {npoint}: "
-                                 f"{int((got != ref).sum())} indices")
-    ms = cuda_ms(lambda: [fps.farthest_point_sample(x, k, start)
-                          for x, k in calls])
-    plain_ms = cuda_ms(lambda: [fps.fps_plain(x, k, start)
-                                for x, k in calls], reps=2, warmup=1)
-    # per step and point: 3 sub, 3 mul, 2 add, 1 min
-    ops = sum(9 * x.shape[0] * x.shape[1] * k for x, k in calls)
-    byt = sum(nbytes(x, start) + x.shape[0] * k * 4 for x, k in calls)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound=bound_ms(byt, ops))
+        for g, r, what in zip(got, ref, ("indices", "coordinates")):
+            if not torch.equal(g, r):
+                raise AssertionError(
+                    f"fps {what} differ from the plain version at "
+                    f"{tuple(x.shape)} -> {npoint}: "
+                    f"{int((g != r).sum())} entries")
+        log(f"fps {tuple(x.shape)} -> {npoint}: (T, P) = "
+            f"{fps.launch_shape(x.shape[1])}, indices and coordinates "
+            f"bit-equal to the plain version")
+    kernels_seen = [name for name, _ in device_kernels(
+        lambda: farthest_points(xyz1, 512, start1))]
+    if len(kernels_seen) != 1 or "fps_kernel" not in kernels_seen[0]:
+        raise AssertionError(f"one SA layer's FPS ran {kernels_seen} on the "
+                             f"device, not one fps kernel")
+    ms = cuda_ms(lambda: [fps.farthest_point_sample(*c) for c in calls],
+                 reps=20)
+    per_call = [cuda_ms(lambda c=c: fps.farthest_point_sample(*c), reps=20)
+                for c in calls]
+    dev = device_ms(lambda: [fps.farthest_point_sample(*c) for c in calls],
+                    "fps_kernel")
+    plain_ms = cuda_ms(lambda: [fps.fps_plain(*c) for c in calls], reps=2,
+                       warmup=1)
+    for (x, k, _), t, d in zip(calls, per_call, dev):
+        log(f"fps {tuple(x.shape)} -> {k}, (T, P) = "
+            f"{fps.launch_shape(x.shape[1])}: {t:.4f} ms a call, device "
+            f"{d:.4f} ms, {d * 1e3 / (k - 1):.3f} us a step")
+    # per sweep step and point: 3 sub, 3 mul, 2 add, 1 min
+    ops = sum(9 * x.shape[0] * x.shape[1] * (k - 1) for x, k, _ in calls)
+    byt = sum(nbytes(x, st) + x.shape[0] * k * (8 + 12)
+              for x, k, st in calls)
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound=bound_ms(byt, ops),
+                per_call_ms=per_call, device_ms=dev,
+                us_per_step=[d * 1e3 / (k - 1)
+                             for d, (_, k, _) in zip(dev, calls)],
+                launch_shapes=[fps.launch_shape(x.shape[1])
+                               for x, _, _ in calls])
 
 
-def device_ms(fn, match, reps=5):
-    """Device-only milliseconds of each kernel whose name holds ``match``
-    that one ``fn()`` launches, from ``torch.profiler``'s kernel events
-    over ``reps`` calls after a warm-up: a list, in launch order, of the
-    mean over the calls."""
+def device_kernels(fn, reps=1):
+    """The device kernels that ``reps`` calls of ``fn()`` launch, in
+    order, from ``torch.profiler`` after a warm-up call: ``(name,
+    microseconds)`` pairs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -167,9 +211,16 @@ def device_ms(fn, match, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA
-         and match in e.name), key=lambda e: e.time_range.start)]
+    return [(e.name, e.time_range.elapsed_us()) for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+
+
+def device_ms(fn, match, reps=5):
+    """Device-only milliseconds of each kernel whose name holds ``match``
+    that one ``fn()`` launches, from :func:`device_kernels` over ``reps``
+    calls: a list, in launch order, of the mean over the calls."""
+    us = [t for name, t in device_kernels(fn, reps) if match in name]
     if not us or len(us) % reps:
         raise AssertionError(f"profiler saw {len(us)} '{match}' kernels in "
                              f"{reps} calls")
@@ -791,6 +842,9 @@ def main_path(entry, kernels):
     if any(counts[k] for k in TRAIN_ONLY):
         raise AssertionError(f"the eval forward launched a backward kernel: "
                              f"{counts}")
+    if counts["fps"] != 2 * 3:
+        raise AssertionError(f"fps launched {counts['fps']} times in 3 "
+                             f"forwards, not once per SA-MSG layer")
     return counts, times, out
 
 
@@ -866,6 +920,9 @@ def train_path(entry, kernels, compute_dtype):
         raise AssertionError(f"mean_shift_bwd launched {bwd} times for "
                              f"{fwd} forward steps in 3 self-sup steps")
     for c in (sc, ssc):
+        if c["fps"] != 2 * 3:
+            raise AssertionError(f"fps launched {c['fps']} times in 3 "
+                                 f"steps, not once per SA-MSG layer")
         # one launch of each per K-max region and step: 6 regions, 3 steps
         want = 18 if mixed else 0
         if not (c["max_bwd_cnt_gsm"] == c["max_bwd_dz"] == want):
@@ -1282,9 +1339,10 @@ def narrow_embeddings(seed, shape=(RB, 2500, 8), sizes=(2, 3, 5, 8)):
 # per-kernel numbers beyond the common ones: the mean-shift backward's on
 # sparse cotangents, NMS's on each input, the gather's device-only time and
 # its time with int32 indices, bandwidth's f32 bound and its time on rows
-# that are all equal
+# that are all equal, and FPS's time per call (events and device-only), per
+# step and launch shapes
 EXTRA_KEYS = ("sparse", "inputs", "device_ms", "int32_ms", "bound_f32_ms",
-              "equal_rows_ms")
+              "equal_rows_ms", "per_call_ms", "us_per_step", "launch_shapes")
 # what each kernel phase times
 CALLS_OF = {"mean_shift_bwd": "one self-sup step",
             "max_bwd_cnt_gsm": "one mxsr train step",

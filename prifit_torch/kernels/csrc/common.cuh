@@ -16,7 +16,7 @@ PRIFIT_API const char* prifit_error_string(int err) {
 
 // (value, index) merges with a total order: ties go to the LOWER index, as
 // jnp.argmax / jnp.argmin (first occurrence) do.  Being a total order makes
-// the butterfly reductions below leave the same answer in every lane.
+// a reduction's answer independent of its merge order.
 __device__ __forceinline__ void merge_max(float& v, int& i, float ov, int oi) {
   if (ov > v || (ov == v && oi < i)) {
     v = ov;
@@ -28,14 +28,5 @@ __device__ __forceinline__ void merge_min(float& v, int& i, float ov, int oi) {
   if (ov < v || (ov == v && oi < i)) {
     v = ov;
     i = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    merge_max(v, i, ov, oi);
   }
 }

@@ -152,12 +152,16 @@ class get_model(nn.Module):
         if embed and not include_convex_loss:
             feat_embed = self._head(feat, self.extra_conv_emb)
         if include_convex_loss:
+            # entropy-weight decay beta *= 0.99 until 0.001, stored only in
+            # training (the self-sup step), as JAX mutates selfsup_state
+            # only there
             beta = self.beta
             new_beta = torch.where(beta > 0.001, beta * 0.99, beta)
             beta_eff = torch.where(beta > 0.001, new_beta,
                                    torch.zeros_like(beta))
-            with torch.no_grad():
-                self.beta.copy_(new_beta)
+            if self.training:
+                with torch.no_grad():
+                    self.beta.copy_(new_beta)
             feat_embed = self._head(feat, self.extra_conv_emb)
             convex_out = convex_loss(
                 l0_xyz, chamfer_points, feat_embed, quantile=quantile,

@@ -27,9 +27,8 @@ from prifit_torch.nn.mixed import MX, MXSR, mx_chain
 from prifit_torch.nn.norm import BatchNorm
 from prifit_torch.ops.sampling import (
     ball_query_nearest_shared,
-    farthest_point_sample,
+    farthest_points,
     gather_neighbors,
-    index_points,
     query_ball_point,
     sample_and_group_all,
     three_nn_interpolate,
@@ -165,15 +164,15 @@ def grouped_first_layer(conv, bn, d_in: int, xyz, points, new_xyz, idx,
 
 
 def fps_start(xyz: torch.Tensor, train: bool,
-              generator: torch.Generator | None) -> torch.Tensor:
+              generator: torch.Generator | None) -> torch.Tensor | None:
     """FPS start indices: random (from ``generator``) when training with
-    a generator, the reference's random start; index 0 otherwise."""
+    a generator, the reference's random start; None (index 0) otherwise."""
     B, N, _ = xyz.shape
     if train and generator is not None:
         start = torch.randint(0, N, (B,), generator=generator,
                               device=generator.device)
         return start.to(xyz.device)
-    return torch.zeros(B, dtype=torch.int64, device=xyz.device)
+    return None
 
 
 class SetAbstractionMsg(nn.Module):
@@ -209,9 +208,9 @@ class SetAbstractionMsg(nn.Module):
         ``[B, npoint, 3]``, new_points ``[B, npoint, sum of last
         widths]``).  ``sr_keys``: one ``MXSR`` key per scale."""
         train = self.training
-        fps_idx = farthest_point_sample(xyz, self.npoint,
-                                        fps_start(xyz, train, generator))
-        new_xyz = index_points(xyz, fps_idx)
+        # the FPS kernel writes the centroids' coordinates itself
+        _, new_xyz = farthest_points(xyz, self.npoint,
+                                     fps_start(xyz, train, generator))
         if self.fused:
             idx_list = ball_query_nearest_shared(
                 self.radius_list, self.nsample_list, xyz, new_xyz)

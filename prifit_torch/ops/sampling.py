@@ -1,7 +1,7 @@
 """Point sampling, grouping and interpolation (PointNet++ ops).
 
 Port of ``prifit_tpu/ops/sampling.py``.  ``gather_neighbors`` and
-``farthest_point_sample`` go to the hand-written kernels
+``farthest_points`` go to the hand-written kernels
 (:mod:`prifit_torch.kernels`) for CUDA tensors; every other op is plain
 PyTorch.  The TPU's width-based gather dispatch (one-hot matmul vs lane
 gather) has no counterpart here: every neighbourhood gather on the card is
@@ -15,14 +15,6 @@ from prifit_torch.kernels.gather import gather_rows
 from prifit_torch.ops.pairwise import min_k, square_distance
 
 
-def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched gather ``out[b, ...] = points[b, idx[b, ...], :]``."""
-    B = points.shape[0]
-    batch = torch.arange(B, device=points.device).view(
-        (B,) + (1,) * (idx.dim() - 1))
-    return points[batch, idx]
-
-
 def gather_neighbors(points: torch.Tensor, idx: torch.Tensor
                      ) -> torch.Tensor:
     """Neighbourhood gather, bit-exact: the gather kernel on CUDA, with
@@ -30,16 +22,22 @@ def gather_neighbors(points: torch.Tensor, idx: torch.Tensor
     return gather_rows(points.contiguous(), idx)
 
 
+def farthest_points(xyz: torch.Tensor, npoint: int,
+                    start: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Iterative farthest point sampling, ``[B, N, 3] -> (idx [B, npoint]
+    int64, new_xyz [B, npoint, 3] f32)``, ``new_xyz`` the sampled points'
+    coordinates (one kernel launch on the card).  ``start [B]`` gives each
+    shape's first index (0 when None, the JAX package's
+    ``deterministic=True``)."""
+    return _fps(xyz.float().contiguous(), npoint, start)
+
+
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           start: torch.Tensor | None = None
                           ) -> torch.Tensor:
-    """Iterative farthest point sampling, ``[B, N, 3] -> [B, npoint]``
-    int64.  ``start [B]`` gives each shape's first index (0 when None, the
-    JAX package's ``deterministic=True``)."""
-    if start is None:
-        start = torch.zeros(xyz.shape[0], dtype=torch.int64,
-                            device=xyz.device)
-    return _fps(xyz.float().contiguous(), npoint, start)
+    """The indices of :func:`farthest_points`, ``[B, npoint]`` int64."""
+    return farthest_points(xyz, npoint, start)[0]
 
 
 def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,

@@ -322,3 +322,29 @@ def test_selfsup_step_matches_jax(setup, monkeypatch):
         F64_RTOL)
     assert state.model.beta.item() == pytest.approx(0.99)
     assert float(upd["selfsup_state"]["beta"]) == pytest.approx(0.99)
+
+
+def test_beta_decays_only_in_the_selfsup_step(setup):
+    """The entropy weight ``beta``: an eval forward with the convex loss
+    leaves it at 1.0, as a JAX ``apply`` that may not mutate
+    ``selfsup_state`` does; one self-sup step decays it to exactly the
+    ``selfsup_state`` beta that the JAX step's ``compute`` returns (and
+    the step stores, ``prifit_tpu/train/steps.py``); a later eval forward
+    keeps it."""
+    (_, (upd, *_)), _ = setup["ss_out"]
+    state = _port_state(setup["ss_vars"])
+    x, cls = torch.from_numpy(setup["blobs"]), torch.from_numpy(setup["cls"])
+
+    def eval_forward():
+        with torch.no_grad():
+            state.model.eval()(x, cls, chamfer_points=x,
+                               include_convex_loss=True, **SS_KW)
+        return state.model.beta.numpy().copy()
+
+    assert eval_forward() == np.float32(1.0)
+    state, _ = make_selfsup_step(**SS_KW)(state, x, cls, x, LR,
+                                          BN_MOMENTUM, LMBDA)
+    jbeta = np.asarray(upd["selfsup_state"]["beta"], np.float32)
+    assert jbeta == np.float32(0.99)
+    np.testing.assert_array_equal(state.model.beta.numpy(), jbeta)
+    np.testing.assert_array_equal(eval_forward(), jbeta)
