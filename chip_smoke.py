@@ -30,23 +30,35 @@ counts set to 0 just before it and read just after:
     (``"auto"`` = ``mxsr``): a warm-up and three timed supervised steps,
     then the same for the self-sup step; each step launches the K-max
     backward pair once per K-max region (6 times);
-  - the same two steps with the f32 encoder.
+  - the same two steps with the f32 encoder;
+  - the other self-sup objectives the JAX trainer selects, at the default
+    dtype, a warm-up and three timed steps each: the self-sup step with
+    every option of the convex loss (entropy, intersection, pruning,
+    alpha 0.01), the same with cuboids, and the contrastive step on
+    ACD-like labels.
 
 It checks that every kernel was launched by the paths that run it, and
-no other.  Then it compares, card against CPU: a B=2 eval forward;
+no other, and that every cotangent the mean-shift backward gets on the
+self-sup paths (the f32 one and both with options) is live in at most 25
+rows a shape.  Then it compares, card against CPU: a B=2 eval forward;
 ``cluster_batch`` at the main path's shapes on structured embeddings
 (several clusters per shape; the per-shape retry on some) and at B=4,
 N=2500 on 8-wide embeddings like the fitting demo's; one B=2 f32
 supervised step (loss and every gradient); one B=2 f32 self-sup step
 (losses); one B=2 ``mxsr`` supervised step with the same rounding key on
 both sides (the loss, and every gradient against the CPU's own spread
-under 2^-20 and 2^-19 changes of the input); and the gradient of the
-convex loss in the embeddings on structured embeddings.  It prints:
+under 2^-20 and 2^-19 changes of the input); the gradient of the
+convex loss in the embeddings on structured embeddings, with its default
+terms and with every option (for ellipsoids and for cuboids, the
+intersection term nonzero); one B=2 f32 self-sup step with every option,
+for ellipsoids and for cuboids (losses); and one B=2 f32 contrastive step
+(the loss and every gradient), each with the same draws on both sides.
+It prints:
 
   - the card's name and power limit (nvidia-smi);
   - the paths' times, peak memory and launch counts;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the five paths (and their sum), its error against the plain version,
+    the eight paths (and their sum), its error against the plain version,
     and the times of the calls one forward or one step makes (kernel,
     plain version, library call) beside the least time the card could
     take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
@@ -862,6 +874,61 @@ def _check_step(state, before, metrics, what):
             raise AssertionError(f"{what}: {name} did not move")
 
 
+def check_encoder_counts(c, mixed, what):
+    """The encoder's launches in 3 train steps ``c``: FPS once per SA-MSG
+    layer and step; the K-max backward pair once per K-max region and
+    step (6 regions) and some rounding casts in a mixed dtype, none of
+    either with f32."""
+    if c["fps"] != 2 * 3:
+        raise AssertionError(f"fps launched {c['fps']} times in 3 {what} "
+                             f"steps, not once per SA-MSG layer")
+    want = 18 if mixed else 0
+    if not (c["max_bwd_cnt_gsm"] == c["max_bwd_dz"] == want):
+        raise AssertionError(f"K-max backward launched {c} in 3 {what} "
+                             f"steps, not {want} each")
+    if bool(c["sr_bf16"]) != mixed:
+        raise AssertionError(f"sr_bf16 launched {c['sr_bf16']} times in 3 "
+                             f"{what} steps")
+
+
+def check_selfsup_counts(c, mixed, what):
+    """A self-sup step's launches ``c`` in 3 steps: every kernel (but
+    the mixed-precision ones with f32), and the mean-shift backward once
+    per forward step."""
+    missing = [k for k, v in c.items()
+               if v == 0 and (mixed or k not in MIXED_ONLY)]
+    if missing:
+        raise AssertionError(f"kernels never launched by the {what} step: "
+                             f"{missing}")
+    fwd, bwd = c["mean_shift"], c["mean_shift_bwd"]
+    if not (bwd == fwd and fwd >= 30 and fwd % 10 == 0):
+        raise AssertionError(f"mean_shift_bwd launched {bwd} times for "
+                             f"{fwd} forward steps in 3 {what} steps")
+
+
+def timed_steps(state, run, kernels, what):
+    """One warm-up ``run()`` of a train step, then three timed ones with
+    the launch counts reset just before, each checked by
+    :func:`_check_step`: their times, launch counts, peak memory and last
+    metrics."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(3):
+        before = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()}
+        t0 = time.perf_counter()
+        _, metrics = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _check_step(state, before, metrics, what)
+    return dict(times=times, counts=kernels.launch_counts(),
+                peak=torch.cuda.max_memory_allocated(),
+                metrics={k: v.item() for k, v in metrics.items()})
+
+
 def train_path(entry, kernels, compute_dtype):
     """The two train steps at B=24, N=2048 with the encoder dtype
     ``compute_dtype`` (``entry.train_flagship``, ``bench.py``'s settings:
@@ -886,50 +953,17 @@ def train_path(entry, kernels, compute_dtype):
         "selfsup": lambda: ss(state, points, cls, points, ts["lr"],
                               ts["bn_momentum"], ts["lmbda"], gen),
     }
-    out = {}
-    for name, run in runs.items():
-        run()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        times = []
-        for _ in range(3):
-            before = {n: p.detach().clone()
-                      for n, p in state.model.named_parameters()}
-            t0 = time.perf_counter()
-            _, metrics = run()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            _check_step(state, before, metrics, name)
-        out[name] = dict(times=times, counts=kernels.launch_counts(),
-                         peak=torch.cuda.max_memory_allocated(),
-                         metrics={k: v.item() for k, v in metrics.items()})
+    out = {name: timed_steps(state, run, kernels, name)
+           for name, run in runs.items()}
     sc, ssc = out["supervised"]["counts"], out["selfsup"]["counts"]
     mixed = compute_dtype != "f32"
     for k in ("fps", "gather") + (MIXED_ONLY if mixed else ()):
         if not (sc[k] > 0 and ssc[k] > 0):
             raise AssertionError(f"{k} not launched in both steps: {sc} "
                                  f"{ssc}")
-    missing = [k for k, v in ssc.items()
-               if v == 0 and (mixed or k not in MIXED_ONLY)]
-    if missing:
-        raise AssertionError(f"kernels never launched by the self-sup "
-                             f"step: {missing}")
-    fwd, bwd = ssc["mean_shift"], ssc["mean_shift_bwd"]
-    if not (bwd == fwd and fwd >= 30 and fwd % 10 == 0):
-        raise AssertionError(f"mean_shift_bwd launched {bwd} times for "
-                             f"{fwd} forward steps in 3 self-sup steps")
+    check_selfsup_counts(ssc, mixed, "self-sup")
     for c in (sc, ssc):
-        if c["fps"] != 2 * 3:
-            raise AssertionError(f"fps launched {c['fps']} times in 3 "
-                                 f"steps, not once per SA-MSG layer")
-        # one launch of each per K-max region and step: 6 regions, 3 steps
-        want = 18 if mixed else 0
-        if not (c["max_bwd_cnt_gsm"] == c["max_bwd_dz"] == want):
-            raise AssertionError(f"K-max backward launched {c} in 3 "
-                                 f"{compute_dtype} steps, not {want} each")
-        if not mixed and c["sr_bf16"]:
-            raise AssertionError("the f32 step rounded stochastically")
+        check_encoder_counts(c, mixed, compute_dtype)
     if mixed:
         with record_sr_calls() as rec:
             runs["supervised"]()
@@ -942,15 +976,68 @@ def train_path(entry, kernels, compute_dtype):
     return out
 
 
-def g_row_share(entry, state, points, cls, gen):
-    """One more self-sup forward and backward (not counted), with a hook
-    on every mean-shift step's backward node: per launch, the largest
-    number of rows of the cotangent g in one shape that are not zero.
-    Centers are gathered from the modes, so at most 25 of 2048 should be.
-    Returns (largest count, mean share of nonzero rows)."""
+# the paths of the self-sup objectives beyond the bench settings: name ->
+# (kind, convex-loss options)
+OBJECTIVE_PATHS = {
+    "selfsup_step_options_mxsr": ("selfsup", {}),
+    "selfsup_step_cuboid_mxsr": ("selfsup", {"if_cuboid": True}),
+    "contrastive_step_mxsr": ("contrastive", None),
+}
+CLUSTERING = ("bandwidth", "mean_shift", "mean_shift_bwd", "nms")
+
+
+def objective_paths(entry, kernels):
+    """The self-sup objectives the JAX trainer selects beyond the bench
+    settings, each at B=24, N=2048 at the default dtype (``mxsr``) from
+    the seeded flagship (``entry.train_flagship``): the self-sup step
+    with every option of the convex loss (``entry.SELFSUP_OPTIONS``:
+    entropy, intersection, pruning, alpha 0.01), the same with cuboids,
+    and the contrastive step (margin 0.5, lmbda 1) on ACD-like labels
+    (``entry.acd_labels``).  Each is :func:`timed_steps` with its launch
+    counts checked: the self-sup paths launch what the bench self-sup step
+    does, the contrastive one the encoder's kernels and none of the
+    clustering's.  The self-sup paths also take :func:`g_row_share`."""
+    from prifit_torch.models.pointnet2_part_seg_msg import get_selfsup_loss
+    from prifit_torch.train.steps import make_contrastive_step, \
+        make_selfsup_step
+    ts = entry.TRAIN_SETTINGS
+    out = {}
+    for name, (kind, extra) in OBJECTIVE_PATHS.items():
+        state, points, cls, _ = entry.train_flagship(B, N)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        if kind == "selfsup":
+            options = dict(entry.SELFSUP_OPTIONS, **extra)
+            step = make_selfsup_step(**entry.BENCH_KWARGS, **options)
+            args = (points, cls, points)
+        else:
+            step = make_contrastive_step(get_selfsup_loss, margin=0.5)
+            args = (points, cls, entry.acd_labels(points))
+        out[name] = r = timed_steps(state, lambda: step(
+            state, *args, ts["lr"], ts["bn_momentum"], ts["lmbda"], gen),
+            kernels, name)
+        c = r["counts"]
+        check_encoder_counts(c, True, name)
+        if kind == "selfsup":
+            check_selfsup_counts(c, True, name)
+            r["g_rows"] = g_row_share(entry, state, points, cls, gen,
+                                      **options)
+        elif any(c[k] for k in CLUSTERING) or not c["gather"]:
+            raise AssertionError(f"the contrastive step launched {c}")
+        del state, step
+    return out
+
+
+def g_row_share(entry, state, points, cls, gen, **options):
+    """One more self-sup forward and backward (not counted) with the
+    convex-loss ``options``, with a hook on every mean-shift step's
+    backward node: per launch, the largest number of rows of the
+    cotangent g in one shape that are not zero.  Centers are gathered
+    from the modes, so at most 25 of 2048 may be (the backward kernel's
+    premise: it walks the live rows only); more raises.  Returns (largest
+    count, mean share of nonzero rows)."""
     model = state.model.train()
     out = model(points, cls, chamfer_points=points, generator=gen,
-                include_convex_loss=True, **entry.BENCH_KWARGS)
+                include_convex_loss=True, **entry.BENCH_KWARGS, **options)
     rows = []
 
     def hook(grad_outputs):
@@ -970,7 +1057,10 @@ def g_row_share(entry, state, points, cls, gen):
     state.optimizer.zero_grad(set_to_none=True)
     if len(rows) < 10:
         raise AssertionError(f"hooked {len(rows)} mean-shift backwards")
-    return max(r[0] for r in rows), sum(r[1] for r in rows) / len(rows)
+    top = max(r[0] for r in rows)
+    if top > entry.BENCH_KWARGS["max_num_clusters"]:
+        raise AssertionError(f"{top} live cotangent rows in a shape")
+    return top, sum(r[1] for r in rows) / len(rows)
 
 
 class eigh_signs_from_card:
@@ -1159,15 +1249,19 @@ def mxsr_train_card_vs_cpu(entry):
                               for v in (errs, spreads, keyed)))
 
 
-def convex_grad_card_vs_cpu():
+def convex_grad_card_vs_cpu(options=None):
     """dLoss/dX of the convex loss on two of ``structured_embeddings``
-    (2 and 4 clusters) at N=2048, card against CPU.  One mean-shift step:
-    after more, each cluster's modes agree to f32 rounding and which of
-    them becomes the center is a rounding tie, so the gradient would flow
+    (2 and 4 clusters) at N=2048, card against CPU, with its default terms
+    or with the convex-loss ``options`` and one entropy subsample and
+    jitter, drawn on the CPU, on both sides.  One mean-shift step: after
+    more, each cluster's modes agree to f32 rounding and which of them
+    becomes the center is a rounding tie, so the gradient would flow
     through different rows.  The center ids are asserted equal first;
     then, with the eigenvector signs aligned, the loss within 1e-5
-    relative and the gradient within 1e-3 of its largest entry (f32
-    clustering, fit and chamfer in other sum orders)."""
+    relative (1e-4 with options) and the gradient within 1e-3 of its
+    largest entry (f32 clustering, fit and chamfer in other sum orders).
+    With options the intersection term (several clusters a shape) must be
+    nonzero and within 1e-4 relative."""
     from prifit_torch.clustering.mean_shift import mean_shift_iterations, \
         nms_fixed_slots
     from prifit_torch.geometry.convex_loss import convex_loss
@@ -1176,12 +1270,18 @@ def convex_grad_card_vs_cpu():
     pts = torch.from_numpy(np.random.default_rng(7).normal(
         size=(2, N, 3)).astype(np.float32))
     kw = dict(quantile=0.05, iterations=1, max_num_clusters=25,
-              n_per_prim=256, num_bandwidth_candidates=2)
+              n_per_prim=256, num_bandwidth_candidates=2, **(options or {}))
+    draws = {}
+    if options:
+        gen = torch.Generator().manual_seed(9)
+        draws = dict(entropy_sub=torch.randperm(N, generator=gen)[:N // 4],
+                     jitter=torch.rand(pts.shape, generator=gen) * 0.2)
     res = {}
     for dev in ("cuda", "cpu"):
         Xd = X.to(dev).requires_grad_()
         with eigh_signs_from_card():
-            out = convex_loss(pts.to(dev), pts.to(dev), Xd, **kw)
+            out = convex_loss(pts.to(dev), pts.to(dev), Xd, **kw,
+                              **{k: v.to(dev) for k, v in draws.items()})
         out.total.backward()
         with torch.no_grad():
             Xn = Xd / Xd.norm(dim=2, keepdim=True)
@@ -1189,19 +1289,94 @@ def convex_grad_card_vs_cpu():
             modes = mean_shift_iterations(Xn, bw, kw["iterations"])
             ids = nms_fixed_slots(modes, bw, kw["max_num_clusters"])[0]
         res[dev] = (out.total.item(), Xd.grad.cpu(), ids.cpu(),
-                    out.clusters.num_clusters.cpu().tolist())
-    (lg, gg, ig, ng), (lc, gc, ic, nc) = res["cuda"], res["cpu"]
+                    out.clusters.num_clusters.cpu().tolist(),
+                    out.intersection.item())
+    (lg, gg, ig, ng, xg), (lc, gc, ic, nc, xc) = res["cuda"], res["cpu"]
     if not (ng == nc == expected):
         raise AssertionError(f"clusters card {ng} cpu {nc} expected "
                              f"{expected}")
     if not torch.equal(ig, ic):
         raise AssertionError("center ids differ card vs cpu")
-    if not abs(lg - lc) <= 1e-5 * abs(lc):
+    if not abs(lg - lc) <= (1e-4 if options else 1e-5) * abs(lc):
         raise AssertionError(f"convex loss card {lg} cpu {lc}")
+    if options and not (xc != 0 and abs(xg - xc) <= 1e-4 * abs(xc)):
+        raise AssertionError(f"intersection card {xg} cpu {xc}")
     err = (gg - gc).abs().max().item()
     if not err <= 1e-3 * gc.abs().max().item():
         raise AssertionError(f"dLoss/dX card vs cpu max abs err {err}")
-    return lg, lc, err, gc.abs().max().item(), nc
+    return lg, lc, err, gc.abs().max().item(), nc, (xg, xc)
+
+
+def options_train_card_vs_cpu(entry):
+    """One B=2 f32 self-sup step with every option
+    (``entry.SELFSUP_OPTIONS``), for ellipsoids and for cuboids, on the
+    card and on the CPU from the same seeded weights, dropout off and FPS
+    from index 0, with one entropy subsample and jitter, drawn on the CPU,
+    on both sides and the eigenvector signs aligned: ss_loss and chamfer
+    within 1e-4 relative, as the bench self-sup step's check.  With random
+    weights each shape has 1 cluster, so the intersection term is 0 here
+    (``convex_grad_card_vs_cpu`` holds it where it is not); the entropy
+    term is not."""
+    from prifit_torch.train.steps import make_selfsup_step
+    ts = entry.TRAIN_SETTINGS
+    gen = torch.Generator().manual_seed(13)
+    sub = torch.randperm(N, generator=gen)[:N // 4]
+    jitter = torch.rand((2, N, 3), generator=gen) * 0.2
+    out = {}
+    for cuboid in (False, True):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            state, points, cls, _ = entry.train_flagship(
+                2, N, device=dev, compute_dtype="f32")
+            state.model.dropout_rate = 0.0
+            step = make_selfsup_step(
+                **entry.BENCH_KWARGS, **entry.SELFSUP_OPTIONS,
+                if_cuboid=cuboid, entropy_sub=sub.to(dev),
+                jitter=jitter.to(dev))
+            with eigh_signs_from_card():
+                _, m = step(state, points, cls, points, ts["lr"],
+                            ts["bn_momentum"], ts["lmbda"])
+            res[dev] = (m["ss_loss"].item(), m["chamfer_loss"].item())
+        for i, what in enumerate(("ss_loss", "chamfer")):
+            a, b = res["cuda"][i], res["cpu"][i]
+            if not abs(a - b) <= 1e-4 * abs(b):
+                raise AssertionError(f"self-sup {what} with every option "
+                                     f"(cuboid {cuboid}) card {a} cpu {b}")
+        out["cuboid" if cuboid else "ellipsoid"] = res
+    return out
+
+
+def contrastive_card_vs_cpu(entry):
+    """One B=2 f32 contrastive step on the card and on the CPU from the
+    same seeded weights, dropout off and FPS from index 0, on the same
+    ACD-like labels, with one set of the negatives' uniforms, drawn on the
+    CPU, on both sides: the loss within 1e-5 relative and every gradient
+    within 5e-2 of the CPU gradient's norm, the limits of the f32
+    supervised check (``train_card_vs_cpu``)."""
+    from prifit_torch.models.pointnet2_part_seg_msg import get_selfsup_loss
+    from prifit_torch.train.steps import make_contrastive_step
+    ts = entry.TRAIN_SETTINGS
+    u = torch.rand((2, N, N), generator=torch.Generator().manual_seed(14))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state, points, cls, _ = entry.train_flagship(
+            2, N, device=dev, compute_dtype="f32")
+        state.model.dropout_rate = 0.0
+        labels = entry.acd_labels(points.cpu()).to(dev)
+        _, m = make_contrastive_step(get_selfsup_loss, margin=0.5)(
+            state, points, cls, labels, ts["lr"], ts["bn_momentum"],
+            ts["lmbda"], uniforms=u.to(dev))
+        res[dev] = (m["ss_loss"].item(),
+                    {n: p.grad.float().cpu()
+                     for n, p in state.model.named_parameters()})
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    if not abs(lg - lc) <= 1e-5 * abs(lc):
+        raise AssertionError(f"contrastive loss card {lg} cpu {lc}")
+    err = _worst_grad_err(gg, gc, "contrastive card vs cpu")
+    if not err <= 5e-2:
+        raise AssertionError(f"contrastive gradients card vs cpu: largest "
+                             f"error {err} of the norm")
+    return lg, lc, err
 
 
 def card_vs_cpu(entry):
@@ -1442,6 +1617,19 @@ def main():
     log(f"mean-shift backward cotangent g on the self-sup path: at most "
         f"{top} of {N} rows nonzero in a shape, {100 * share:.3f}% of rows "
         f"on average over its launches")
+    objectives = objective_paths(entry, kernels)
+    for name, r in objectives.items():
+        t = sorted(r["times"])[1]
+        log(f"train path B={B} N={N} {name}: {t * 1e3:.1f} ms (median of "
+            f"3; {', '.join(f'{x * 1e3:.1f}' for x in r['times'])}), "
+            f"{B / t:.1f} clouds/s [{smi}]; peak memory "
+            f"{r['peak'] / 2**30:.2f} GiB; launches in 3 steps "
+            f"{r['counts']}; last metrics {r['metrics']}")
+        if "g_rows" in r:
+            top, share = r["g_rows"]
+            log(f"  mean-shift backward cotangent g on {name}: at most "
+                f"{top} of {N} rows nonzero in a shape, {100 * share:.3f}% "
+                f"of rows on average over its launches")
     tc = train_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
         f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
@@ -1459,15 +1647,29 @@ def main():
         f"norm ({name}; cpu spread there {spread:.4f}); medians over the "
         f"parameters: card vs cpu {mc['medians'][0]:.4f}, cpu spread "
         f"{mc['medians'][1]:.4f}, another key {mc['medians'][2]:.4f}")
-    lg, lc, err, top, nc = convex_grad_card_vs_cpu()
-    log(f"card vs cpu convex loss gradient, structured B=2 N={N}: "
-        f"num_clusters {nc}, same center ids, loss {lg:.7f} / {lc:.7f}, "
-        f"dLoss/dX max abs err {err:.3g} (largest entry {top:.3g})")
+    for what, options in (
+            ("default terms", None),
+            ("every option", entry.SELFSUP_OPTIONS),
+            ("every option, cuboids", dict(entry.SELFSUP_OPTIONS,
+                                           if_cuboid=True))):
+        lg, lc, err, top, nc, (xg, xc) = convex_grad_card_vs_cpu(options)
+        log(f"card vs cpu convex loss gradient, structured B=2 N={N}, "
+            f"{what}: num_clusters {nc}, same center ids, loss {lg:.7f} / "
+            f"{lc:.7f}, intersection {xg:.7g} / {xc:.7g}, dLoss/dX max abs "
+            f"err {err:.3g} (largest entry {top:.3g})")
+    for kind, res in options_train_card_vs_cpu(entry).items():
+        log(f"card vs cpu train B=2 f32, self-sup with every option, "
+            f"{kind}s: (ss_loss, chamfer) {res['cuda']} (card) "
+            f"{res['cpu']} (cpu)")
+    lg, lc, err = contrastive_card_vs_cpu(entry)
+    log(f"card vs cpu train B=2 f32, contrastive: loss {lg:.7f} (card) "
+        f"{lc:.7f} (cpu), largest gradient error {err:.4g} of the norm")
 
     paths = {"eval_forward": counts}
     for dt, tag in (("auto", "mxsr"), ("f32", "f32")):
         paths[f"supervised_step_{tag}"] = train[dt]["supervised"]["counts"]
         paths[f"selfsup_step_{tag}"] = train[dt]["selfsup"]["counts"]
+    paths.update({name: r["counts"] for name, r in objectives.items()})
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]

@@ -62,10 +62,15 @@ def _conv(w2, conv2d: bool):
 
 
 def state_dict_from_jax(variables) -> dict:
-    """``{"params": ..., "batch_stats": ...}`` nested dicts of arrays of
-    the JAX ``pointnet2_part_seg_msg.get_model`` -> the port's state_dict
-    (torch f32 tensors)."""
-    return _convert(variables["params"], variables["batch_stats"])
+    """``{"params": ..., "batch_stats": ..., "selfsup_state": ...}``
+    nested dicts of arrays of the JAX ``pointnet2_part_seg_msg.get_model``
+    -> the port's state_dict (torch f32 tensors).  The self-sup entropy
+    weight ``selfsup_state["beta"]`` becomes ``beta``; without a
+    ``selfsup_state`` it is 1.0, as at the JAX model's init."""
+    sd = _convert(variables["params"], variables["batch_stats"])
+    beta = variables.get("selfsup_state", {}).get("beta", 1.0)
+    sd["beta"] = torch.tensor(np.asarray(beta, np.float32))
+    return sd
 
 
 def params_from_jax(params) -> dict:

@@ -1,5 +1,5 @@
 """Entry points of the port: the flagship model, its eval forward with
-primitive fit, and its two train steps.
+primitive fit, and its train steps (supervised, self-sup and contrastive).
 
 Mirrors ``__graft_entry__._flagship`` / ``entry`` and the programs that
 ``bench.py`` times: ``pointnet2_part_seg_msg`` with 50 parts, in eval
@@ -24,6 +24,10 @@ BENCH_KWARGS = dict(quantile=0.05, msc_iterations=10, max_num_clusters=25,
 BENCH_BATCH, BENCH_NPOINT = 24, 2048
 # the per-step scalars of bench.py's train steps (bench.py:143-159)
 TRAIN_SETTINGS = dict(lr=0.001, bn_momentum=0.1, lmbda=1.0)
+# every option of the convex loss, with the canonical recipe's alpha
+# (prifit_tpu/cli/train_partseg.py:14); if_cuboid is the one left out
+SELFSUP_OPTIONS = dict(include_entropy_loss=True, include_intersect_loss=True,
+                       include_pruning=True, alpha=0.01)
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator
@@ -77,6 +81,20 @@ def train_flagship(batch: int, npoint: int, *, device=None,
                              device=device)
     cls = torch.zeros((batch, 16), dtype=torch.float32, device=device)
     return state, points, cls, target
+
+
+def acd_labels(points: torch.Tensor, n_anchors: int = 10, seed: int = 0
+               ) -> torch.Tensor:
+    """Component labels ``[B, N]`` (int64, on ``points``' device) that
+    split each cloud ``points [B, N, 3]`` into parts, as the ACD
+    components of the contrastive step do: each point takes the index of
+    the nearest of ``n_anchors`` gaussian anchor points per cloud, drawn
+    with numpy from ``seed``."""
+    anchors = np.random.default_rng(seed).normal(
+        size=(points.shape[0], n_anchors, 3)).astype(np.float32)
+    anchors = torch.as_tensor(anchors, device=points.device)
+    d = ((points[:, :, None, :3] - anchors[:, None]) ** 2).sum(-1)
+    return d.argmin(-1)
 
 
 def eval_forward(model, points, cls, **kwargs):

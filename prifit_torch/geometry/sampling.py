@@ -1,10 +1,12 @@
-"""Primitive surface sampling with area weights (ellipsoids).
+"""Primitive surface sampling with area weights.
 
-Port of ``prifit_tpu/geometry/sampling.py``: a deterministic Fibonacci
-lattice of directions is scaled by each slot's radii, rotated and shifted;
-each sample carries the local area element of that map as a weight, so the
-weight sums are the surface areas.  The directions and the weights carry no
-gradient; the points do, to r, V and center.
+Port of ``prifit_tpu/geometry/sampling.py``.  A deterministic lattice on
+the unit shape (a Fibonacci lattice of directions for ellipsoids, a
+centered grid on each face of ``[-1, 1]^3`` for cuboids) is scaled by each
+slot's radii, rotated and shifted; each sample carries the area element of
+that map as a weight, so the weight sums are the surface areas.  The
+lattice and the weights carry no gradient; the points do, to r, V and
+center.
 """
 
 import math
@@ -25,6 +27,25 @@ def fibonacci_sphere(n: int, device=None) -> torch.Tensor:
                        dim=1)
 
 
+def box_surface_lattice(n: int, device=None):
+    """A centered ``g x g`` grid on each face of the unit box
+    ``[-1, 1]^3``, ``g = isqrt(max(n // 6, 1))`` (at least 1): ``(points
+    [6 g^2, 3], face_axis [6 g^2])``, where ``face_axis`` (int64) is the
+    axis whose coordinate is frozen at +-1 on that face.  So ``n = 256``
+    gives 216 points, not 256."""
+    g = max(math.isqrt(max(n // 6, 1)), 1)
+    u = (torch.arange(g, dtype=torch.float32, device=device) + 0.5) \
+        / g * 2.0 - 1.0
+    uu, vv = torch.meshgrid(u, u, indexing="ij")
+    uu, vv = uu.reshape(-1), vv.reshape(-1)
+    ones = torch.ones_like(uu)
+    faces = [(ones, uu, vv), (-ones, uu, vv), (uu, ones, vv),
+             (uu, -ones, vv), (uu, vv, ones), (uu, vv, -ones)]
+    pts = torch.cat([torch.stack(f, 1) for f in faces])
+    axis = torch.arange(3, device=device).repeat_interleave(2 * g * g)
+    return pts, axis
+
+
 def sample_ellipsoid_surface(r, V, center, dirs):
     """Samples of ellipsoids ``r [..., 3]``, ``V [..., 3, 3]``,
     ``center [..., 3]`` along ``dirs [S, 3]`` -> ``(points [..., S, 3],
@@ -40,13 +61,38 @@ def sample_ellipsoid_surface(r, V, center, dirs):
     return world, area_w
 
 
-def sample_primitives_batch(params: PrimitiveParams, n_per_prim: int = 400):
-    """``n_per_prim`` samples for each of the K slots of each shape ->
-    ``(points [B, K * n, 3], weights [B, K * n])``, zero weight for
-    invalid slots."""
-    dirs = fibonacci_sphere(n_per_prim, device=params.r.device)
-    pts, w = sample_ellipsoid_surface(params.r, params.V, params.center,
-                                      dirs)
+def sample_cuboid_surface(r, V, center, lattice, face_axis):
+    """Samples of cuboids with sides ``2 r [..., 3]``, axes
+    ``V [..., 3, 3]`` and centers ``center [..., 3]`` at the unit-box
+    points ``lattice [S, 3]`` on faces ``face_axis [S]`` -> ``(points
+    [..., S, 3], area_w [..., S])``: each sample weighs its face's area
+    over the samples a face holds."""
+    u = lattice.detach()
+    local = u * r[..., None, :]
+    world = torch.matmul(local, V.transpose(-1, -2)) + center[..., None, :]
+    rs = torch.abs(r.detach())
+    face_areas = 4.0 * torch.stack(
+        [rs[..., 1] * rs[..., 2], rs[..., 0] * rs[..., 2],
+         rs[..., 0] * rs[..., 1]], dim=-1)
+    area_w = face_areas[..., face_axis] / (u.shape[0] / 6.0)
+    return world, area_w
+
+
+def sample_primitives_batch(params: PrimitiveParams, n_per_prim: int = 400,
+                            cuboid: bool = False):
+    """Samples of each of the K slots of each shape -> ``(points
+    [B, K * S, 3], weights [B, K * S])``, zero weight for invalid slots;
+    ``S = n_per_prim`` for ellipsoids, the :func:`box_surface_lattice`
+    count for cuboids."""
+    device = params.r.device
+    if cuboid:
+        lattice, face_axis = box_surface_lattice(n_per_prim, device)
+        pts, w = sample_cuboid_surface(params.r, params.V, params.center,
+                                       lattice, face_axis)
+    else:
+        pts, w = sample_ellipsoid_surface(
+            params.r, params.V, params.center,
+            fibonacci_sphere(n_per_prim, device=device))
     w = w * params.valid[..., None]
     B = pts.shape[0]
     return pts.reshape(B, -1, 3), w.reshape(B, -1)

@@ -1,12 +1,14 @@
 """Model output contract and encoder dtype selection.
 
 Port of ``prifit_tpu/models/common.py``: ``SegOutput``, ``nll_loss``,
-``encoder_dtypes``, ``stage_cfg`` and ``maybe_quant``.
+``pairwise_contrastive_loss``, ``encoder_dtypes``, ``stage_cfg`` and
+``maybe_quant``.
 """
 
 from typing import Any, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from prifit_torch.nn.pointnet2 import FQ, MX, MXSR
 
@@ -32,6 +34,42 @@ def nll_loss(pred_logprob: torch.Tensor, target: torch.Tensor
     log-probabilities)."""
     ll = torch.gather(pred_logprob, -1, target[..., None].long())[..., 0]
     return -torch.mean(ll)
+
+
+def pairwise_contrastive_loss(feat: torch.Tensor, target: torch.Tensor,
+                              generator: torch.Generator | None = None,
+                              margin: float = 0.5, num_classes: int = 64,
+                              uniforms: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """The ACD pairwise contrastive self-sup loss of per-point features
+    ``feat [B, N, C]`` under component labels ``target [B, N]``: cosine
+    similarity of the normalized features; pairs of one component pull
+    toward 1, the others hinge at ``margin``; the diagonal is masked, and
+    negatives are kept where ``uniforms [B, N, N]`` (else ``U[0, 1)`` from
+    ``generator``) exceeds ``1 - `` the share of positive pairs.
+
+    A label outside ``[0, num_classes)`` has no component, as under the
+    JAX package's one-hot: its point pairs with no point, itself
+    included."""
+    with record_function("pairwise_contrastive_loss"):
+        feat = feat / torch.clamp_min(
+            torch.linalg.norm(feat, dim=-1, keepdim=True), 1e-12)
+        pair_sim = torch.matmul(feat, feat.transpose(1, 2))
+        known = (target >= 0) & (target < num_classes)
+        # the pairs of one component; the JAX package's 0/1 pair_target
+        pos = (target[:, :, None] == target[:, None, :]) & known[:, :, None]
+        cosine = torch.where(pos, 1.0 - pair_sim,
+                             torch.relu(pair_sim - margin))
+        pos_fraction = pos.sum() / pos.numel()
+        if uniforms is None:
+            if generator is None:
+                raise ValueError("the contrastive loss needs a generator or "
+                                 "uniforms to subsample its negatives")
+            uniforms = torch.rand(pos.shape, generator=generator,
+                                  device=generator.device).to(feat.device)
+        keep = (pos | (uniforms > 1.0 - pos_fraction)) & ~torch.eye(
+            pos.shape[1], dtype=torch.bool, device=feat.device)
+        return 0.5 * torch.mean(torch.where(keep, cosine, 0.0))
 
 
 def encoder_dtypes(compute_dtype: str):

@@ -10,9 +10,11 @@ forward.  Parameters and buffers carry the reference state_dict names, so
 ``strict=True``.
 
 Mode follows ``module.train()`` / ``module.eval()``.  Randomness (the
-training FPS start, dropout and the ``mxsr`` stochastic rounding) comes
-only from an explicit ``torch.Generator``; without one, FPS starts at
-index 0.
+training FPS start, dropout, the ``mxsr`` stochastic rounding and the
+convex loss's entropy subsample and jitter) comes only from an explicit
+``torch.Generator``; without one, FPS starts at index 0.  As in the JAX
+package, the convex loss takes its randomness only in training: an eval
+forward takes its deterministic fallbacks.
 
 Training with ``mxsr`` stages (the default ``"auto"``) takes one base key
 of two uint32 words per forward, ``sr_key`` or drawn from the generator,
@@ -31,6 +33,7 @@ from prifit_torch.models.common import (
     encoder_dtypes,
     maybe_quant,
     nll_loss,
+    pairwise_contrastive_loss,
     stage_cfg,
 )
 from prifit_torch.nn.mixed import MXSR, fold_in
@@ -80,9 +83,8 @@ class get_model(nn.Module):
         self.conv2 = nn.Conv1d(128, num_parts, 1)
         self.extra_conv_emb = nn.Conv1d(128, 128, 1)
         # entropy-weight decay beta *= 0.99 until 0.001 (the JAX
-        # package's ``selfsup_state`` collection); not part of the
-        # state_dict
-        self.register_buffer("beta", torch.ones(()), persistent=False)
+        # package's ``selfsup_state`` collection), in the state_dict
+        self.register_buffer("beta", torch.ones(()))
         self.to(resolve_device(device))
 
     def _head(self, x, conv):
@@ -107,15 +109,21 @@ class get_model(nn.Module):
                 chamfer_points: torch.Tensor | None = None, *,
                 bn_momentum: float = 0.1,
                 include_convex_loss: bool = False,
+                if_cuboid: bool = False,
+                include_intersect_loss: bool = False,
+                include_entropy_loss: bool = False,
+                include_pruning: bool = False,
                 quantile: float = 0.01, msc_iterations: int = 5,
                 max_num_clusters: int = 25, n_per_prim: int = 400,
                 num_bandwidth_candidates: int = 2, alpha: float = 1.0,
                 evaluation: bool = False, embed: bool = False,
                 generator: torch.Generator | None = None,
-                sr_key=None) -> SegOutput:
+                sr_key=None, entropy_sub=None, jitter=None) -> SegOutput:
         """``xyz [B, N, 3(+3)]`` channel-last, ``cls_label [B, 16]``
         one-hot; ``sr_key`` the ``mxsr`` base key (two uint32 words),
-        drawn from ``generator`` when None."""
+        drawn from ``generator`` when None; ``entropy_sub`` and ``jitter``
+        the convex loss's draws (``geometry/convex_loss.py``), taken from
+        ``generator`` when None."""
         B, N, _ = xyz.shape
         q = self.quant
         keys = self._region_keys(generator, sr_key)
@@ -163,12 +171,18 @@ class get_model(nn.Module):
                 with torch.no_grad():
                     self.beta.copy_(new_beta)
             feat_embed = self._head(feat, self.extra_conv_emb)
+            draws = dict(generator=generator, entropy_sub=entropy_sub,
+                         jitter=jitter) if self.training else {}
             convex_out = convex_loss(
                 l0_xyz, chamfer_points, feat_embed, quantile=quantile,
                 iterations=msc_iterations,
                 max_num_clusters=max_num_clusters, n_per_prim=n_per_prim,
                 num_bandwidth_candidates=num_bandwidth_candidates,
-                alpha=alpha, beta=beta_eff, evaluation=evaluation)
+                include_intersect_loss=include_intersect_loss,
+                include_entropy_loss=include_entropy_loss,
+                include_pruning=include_pruning, alpha=alpha,
+                beta=beta_eff, if_cuboid=if_cuboid, evaluation=evaluation,
+                **draws)
             total_loss, chamfer = convex_out.total, convex_out.chamfer
 
         x = feat
@@ -190,3 +204,11 @@ def get_loss(pred, target, trans_feat=None):
     """NLL over log-probabilities (``get_loss`` of the JAX package's
     ``pointnet2_part_seg_msg``)."""
     return nll_loss(pred, target)
+
+
+def get_selfsup_loss(feat, target, generator=None, margin=0.5,
+                     uniforms=None):
+    """The ACD pairwise contrastive loss
+    (:func:`prifit_torch.models.common.pairwise_contrastive_loss`)."""
+    return pairwise_contrastive_loss(feat, target, generator, margin,
+                                     uniforms=uniforms)

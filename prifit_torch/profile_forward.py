@@ -11,22 +11,26 @@ power limit, then for one eval forward (``entry.flagship``, default dtype):
      its last kernel's end: the device-side mirror of its profiler range),
      the device time of the kernels that start within that span, and the
      stage's host time.  The encoder stages are the model's submodules
-     (sa1..fp1), given profiler ranges by forward hooks; the clustering
-     and geometry stages are the ``record_function`` ranges in
-     ``clustering/mean_shift.py`` and ``geometry/convex_loss.py``.  A
-     stage that does not appear on both sides of the profile raises.
+     (sa1..fp1), given profiler ranges by forward hooks; the clustering,
+     geometry and contrastive-loss stages are the ``record_function``
+     ranges in ``clustering/mean_shift.py``, ``geometry/convex_loss.py``
+     and ``models/common.py``.  A stage that the run should show and
+     does not appear on both sides of the profile raises.
      (The kernels launched through ``ctypes`` are not linked to the CPU
      range around them, so a range's own device total leaves them out;
      its device-side mirror does not.)
   2. the device's busy and idle share of the forward's wall time;
   3. device time by kernel, the largest first.
 
-Then the same for one self-sup train step (``entry.train_flagship`` at the
-default encoder dtype, ``"auto"`` = ``mxsr``, bench settings) after a
-warm-up step: the stage table of its
-forward (the ``train_forward`` range of ``train/steps.py``), the busy and
-idle share, and its backward by kernel: the device kernels that start
-after the forward's device span ends and before the optimizer's
+Then the same for each train step of :data:`STEPS`
+(``entry.train_flagship`` at the default encoder dtype, ``"auto"`` =
+``mxsr``), each after a warm-up step: the self-sup step at the bench
+settings, the same with every option of the convex loss (entropy,
+intersection, pruning; ``alpha`` 0.01) for ellipsoids and for cuboids,
+and the contrastive step.  For each, the stage table of its forward (the
+``train_forward`` range of ``train/steps.py``), the busy and idle share,
+and its backward by kernel: the device kernels that start after the
+forward's device span ends and before the optimizer's
 (``optimizer_step``) begins.  The backward runs on autograd's own
 thread, so a range around it would have no device-side mirror.
 
@@ -43,17 +47,37 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from prifit_torch import entry
 
 ENCODER_STAGES = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
-# the ranges of convex_loss, each with the ranges nested in it
+# the ranges of convex_loss in order, each with the ranges nested in it
 CONVEX_STAGES = {
+    "entropy_loss": (),
     "cluster_batch": ("bandwidth_candidates", "mean_shift_iterations",
                       "nms_fixed_slots", "membership"),
     "fit_ellipsoids_batch": (),
     "sample_primitives_batch": (),
+    "prune_mask": (),
     "analytic_chamfer": (),
+    "intersection_loss": (),
 }
-STAGES = ENCODER_STAGES + tuple(
-    s for top, inner in CONVEX_STAGES.items() for s in (top,) + inner)
+# the ranges only the convex loss's options open
+OPTION_STAGES = ("entropy_loss", "prune_mask", "intersection_loss")
+CONVEX = tuple(s for top, inner in CONVEX_STAGES.items()
+               for s in (top,) + inner)
+# the contrastive step's loss (models/common.py)
+CONTRASTIVE = ("pairwise_contrastive_loss",)
+STAGES = ENCODER_STAGES + CONVEX + CONTRASTIVE
+DEFAULT_STAGES = ENCODER_STAGES + tuple(s for s in CONVEX
+                                        if s not in OPTION_STAGES)
 STEP_RANGES = ("train_forward", "optimizer_step")
+# the profiled train steps: (name, kind, convex-loss arguments beyond the
+# bench settings, the stages its forward must show)
+STEPS = (
+    ("self-sup", "selfsup", {}, DEFAULT_STAGES),
+    ("self-sup with every option", "selfsup", entry.SELFSUP_OPTIONS,
+     ENCODER_STAGES + CONVEX),
+    ("self-sup with every option, cuboids", "selfsup",
+     dict(entry.SELFSUP_OPTIONS, if_cuboid=True), ENCODER_STAGES + CONVEX),
+    ("contrastive", "contrastive", None, ENCODER_STAGES + CONTRASTIVE),
+)
 RANGES = STAGES + STEP_RANGES
 TOP_KERNELS = 25
 
@@ -116,12 +140,13 @@ def _device_kernels(events):
             and e.name not in RANGES]
 
 
-def _stage_times(events):
-    """Each stage's (device span us, device busy us, host us)."""
-    host, spans = _ranges(events, STAGES)
+def _stage_times(events, names):
+    """Each stage of ``names``' (device span us, device busy us, host
+    us)."""
+    host, spans = _ranges(events, names)
     device = _device_kernels(events)
     stages = {}
-    for name in STAGES:
+    for name in names:
         busy = sum(k.time_range.elapsed_us() for k in device
                    if any(a <= k.time_range.start < b
                           for a, b in spans[name]))
@@ -148,14 +173,14 @@ def profile_forward(model, points, cls):
     first."""
     wall, events, averages = _profile(model, lambda: entry.eval_forward(
         model, points, cls, **entry.BENCH_KWARGS))
-    return wall, _stage_times(events), _by_kernel(averages)
+    return wall, _stage_times(events, DEFAULT_STAGES), _by_kernel(averages)
 
 
-def profile_selfsup_step(state, run):
-    """Profiles one self-sup step ``run()``: ``(wall_s, stages, kernels,
-    backward, optimizer_us)``; ``backward`` lists the (name, device us,
-    count) of the kernels between the forward's and the optimizer's
-    device spans, the largest first."""
+def profile_step(state, run, stages):
+    """Profiles one train step ``run()`` whose forward shows the ranges
+    ``stages``: ``(wall_s, stages, kernels, backward, optimizer_us)``;
+    ``backward`` lists the (name, device us, count) of the kernels between
+    the forward's and the optimizer's device spans, the largest first."""
     wall, events, averages = _profile(state.model, run)
     _, spans = _ranges(events, ("train_forward", "optimizer_step"))
     fwd_end = max(b for _, b in spans["train_forward"])
@@ -168,20 +193,24 @@ def profile_selfsup_step(state, run):
     backward = sorted(((name, us, n) for name, (us, n) in backward.items()),
                       key=lambda r: -r[1])
     opt_us = sum(b - a for a, b in spans["optimizer_step"])
-    return wall, _stage_times(events), _by_kernel(averages), backward, opt_us
+    return (wall, _stage_times(events, stages), _by_kernel(averages),
+            backward, opt_us)
 
 
 def _print_stages(stages, busy_ms):
     print("stage: device span ms, device busy ms (kernels in the span), "
           "host ms")
-    for top in ENCODER_STAGES + tuple(CONVEX_STAGES):
+    tops = ENCODER_STAGES + tuple(CONVEX_STAGES) + CONTRASTIVE
+    for top in tops:
         for name in (top,) + CONVEX_STAGES.get(top, ()):
+            if name not in stages:
+                continue
             span, dev, host = stages[name]
             indent = "  " if name == top else "    . "
             print(f"{indent}{name:28s} {span / 1e3:9.3f} {dev / 1e3:9.3f} "
                   f"{host / 1e3:9.3f}")
-    outside = busy_ms - sum(stages[s][1] for s in ENCODER_STAGES
-                            + tuple(CONVEX_STAGES)) / 1e3
+    outside = busy_ms - sum(stages[s][1] for s in tops
+                            if s in stages) / 1e3
     print(f"  {'busy outside the stages':28s} {outside:19.3f}")
 
 
@@ -215,31 +244,40 @@ def main():
     _print_kernels("device ms by kernel (self), top:", kernels)
     del model
 
-    from prifit_torch.train.steps import make_selfsup_step
-    state, points, cls, _ = entry.train_flagship(B, N)
+    from prifit_torch.models.pointnet2_part_seg_msg import get_selfsup_loss
+    from prifit_torch.train.steps import make_contrastive_step, \
+        make_selfsup_step
     ts = entry.TRAIN_SETTINGS
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    step = make_selfsup_step(**entry.BENCH_KWARGS)
+    for title, kind, options, names in STEPS:
+        state, points, cls, _ = entry.train_flagship(B, N)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        if kind == "selfsup":
+            step = make_selfsup_step(**entry.BENCH_KWARGS, **options)
+            args = (points, cls, points)
+        else:
+            step = make_contrastive_step(get_selfsup_loss)
+            args = (points, cls, entry.acd_labels(points))
 
-    def run():
-        step(state, points, cls, points, ts["lr"], ts["bn_momentum"],
-             ts["lmbda"], gen)
+        def run():
+            step(state, *args, ts["lr"], ts["bn_momentum"], ts["lmbda"],
+                 gen)
 
-    run()
-    torch.cuda.synchronize()
-    wall, stages, kernels, backward, opt_us = profile_selfsup_step(state,
-                                                                   run)
-    busy = sum(r[1] for r in kernels) / 1e3
-    bwd = sum(r[1] for r in backward) / 1e3
-    print("== self-sup train step (default encoder dtype, mxsr), forward "
-          "stages")
-    _print_stages(stages, busy)
-    print(f"profiled step: wall {wall * 1e3:.3f} ms, device busy "
-          f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
-          f"{100 - 100 * busy / (wall * 1e3):.1f}%; backward kernels "
-          f"{bwd:.3f} ms busy; optimizer span {opt_us / 1e3:.3f} ms")
-    _print_kernels("backward device ms by kernel, top:", backward)
-    _print_kernels("step device ms by kernel (self), top:", kernels)
+        run()
+        torch.cuda.synchronize()
+        wall, stages, kernels, backward, opt_us = profile_step(state, run,
+                                                               names)
+        busy = sum(r[1] for r in kernels) / 1e3
+        bwd = sum(r[1] for r in backward) / 1e3
+        print(f"== {title} train step (default encoder dtype, mxsr), "
+              f"forward stages")
+        _print_stages(stages, busy)
+        print(f"profiled step: wall {wall * 1e3:.3f} ms, device busy "
+              f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
+              f"{100 - 100 * busy / (wall * 1e3):.1f}%; backward kernels "
+              f"{bwd:.3f} ms busy; optimizer span {opt_us / 1e3:.3f} ms")
+        _print_kernels("backward device ms by kernel, top:", backward)
+        _print_kernels("step device ms by kernel (self), top:", kernels)
+        del state, step, run
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Training: schedules, train state and optimizers, and the two train
-steps (port of ``prifit_tpu/train``)."""
+"""Training: schedules, train state and optimizers, and the supervised,
+self-sup and contrastive train steps (port of ``prifit_tpu/train``)."""
 
 from prifit_torch.train.schedules import (
     bn_momentum_schedule,
@@ -8,8 +8,9 @@ from prifit_torch.train.schedules import (
 )
 from prifit_torch.train.state import TrainState, create_train_state, \
     make_optimizer
-from prifit_torch.train.steps import make_selfsup_step, make_supervised_step
+from prifit_torch.train.steps import make_contrastive_step, \
+    make_selfsup_step, make_supervised_step
 
 __all__ = ["TrainState", "bn_momentum_schedule", "create_train_state",
-           "lambda_schedule", "lr_schedule", "make_optimizer",
-           "make_selfsup_step", "make_supervised_step"]
+           "lambda_schedule", "lr_schedule", "make_contrastive_step",
+           "make_optimizer", "make_selfsup_step", "make_supervised_step"]

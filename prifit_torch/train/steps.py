@@ -1,15 +1,19 @@
-"""Train steps: supervised NLL and the self-supervised convex loss.
+"""Train steps: supervised NLL, the self-supervised convex loss and the
+ACD contrastive loss.
 
-Port of ``prifit_tpu/train/steps.py::make_supervised_step`` and
-``make_selfsup_step``.  A step runs the train-mode forward, the backward
-and one optimizer update eagerly.  Unlike the JAX steps, which return a
-new state, it updates the state's model (parameters, batch-norm running
-statistics, the self-sup ``beta`` buffer) and optimizer IN PLACE and
-returns the same state with its step count advanced.
+Port of ``prifit_tpu/train/steps.py::make_supervised_step``,
+``make_selfsup_step`` and ``make_contrastive_step``.  A step runs the
+train-mode forward, the backward and one optimizer update eagerly.
+Unlike the JAX steps, which return a new state, it updates the state's
+model (parameters, batch-norm running statistics, the self-sup ``beta``
+buffer) and optimizer IN PLACE and returns the same state with its step
+count advanced.
 
-Randomness (the FPS start, dropout and, with ``mxsr`` stages, the
-stochastic rounding) comes from the ``generator`` argument; without one
-FPS starts at index 0, and dropout and ``mxsr`` need one.  An ``mxsr``
+Randomness (the FPS start, dropout, with ``mxsr`` stages the stochastic
+rounding, and the self-sup losses' draws) comes from the ``generator``
+argument; without one FPS starts at index 0, the convex loss takes its
+deterministic fallbacks, and dropout, ``mxsr`` and the contrastive loss
+need one.  An ``mxsr``
 step draws one base key of two uint32 words from the generator and reads
 it to the host, once per step (the model's forward does, see
 :mod:`prifit_torch.models.pointnet2_part_seg_msg`); ``sr_key`` gives that
@@ -77,7 +81,9 @@ def make_supervised_step(model_loss: Callable,
 def make_selfsup_step(*, fused_augment: bool = False,
                       **convex_kwargs) -> Callable:
     """``convex_kwargs``: the model's convex-loss arguments (quantile,
-    msc_iterations, max_num_clusters, n_per_prim, ...) ->
+    msc_iterations, max_num_clusters, n_per_prim, include_entropy_loss,
+    include_intersect_loss, include_pruning, if_cuboid, alpha, ...; also
+    ``entropy_sub`` and ``jitter``, which fix the loss's draws) ->
     ``step(state, points, cls_onehot, chamfer_points, lr, bn_momentum,
     lmbda, generator=None, sr_key=None) -> (state, {ss_loss,
     chamfer_loss})`` with
@@ -100,5 +106,34 @@ def make_selfsup_step(*, fused_augment: bool = False,
         _apply_gradients(state, lr)
         return state, {"ss_loss": ss_loss.detach(),
                        "chamfer_loss": out.chamfer_loss.detach()}
+
+    return step
+
+
+def make_contrastive_step(selfsup_loss_fn: Callable,
+                          margin: float = 0.5) -> Callable:
+    """``selfsup_loss_fn(feat, target, generator, margin, uniforms=...)``
+    (the model module's ``get_selfsup_loss``) -> ``step(state, points,
+    cls_onehot, target, lr, bn_momentum, lmbda, generator=None,
+    sr_key=None, uniforms=None) -> (state, {ss_loss})`` with ``ss_loss =
+    loss(feat) * lmbda`` on the pre-head feature ``feat``, updating
+    ``state`` in place.  ``target`` holds the ACD component labels;
+    ``uniforms`` fixes the negatives' draw, else it comes from
+    ``generator`` after the forward's."""
+
+    def step(state: TrainState, points, cls_onehot, target, lr: float,
+             bn_momentum: float, lmbda: float,
+             generator: torch.Generator | None = None, sr_key=None,
+             uniforms=None):
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with record_function("train_forward"):
+            out = model(points, cls_onehot, bn_momentum=bn_momentum,
+                        generator=generator, sr_key=sr_key)
+            loss = selfsup_loss_fn(out.feat, target, generator, margin,
+                                   uniforms=uniforms) * lmbda
+        loss.backward()
+        _apply_gradients(state, lr)
+        return state, {"ss_loss": loss.detach()}
 
     return step

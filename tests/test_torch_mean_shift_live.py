@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from prifit_torch.clustering import mean_shift as T
+from prifit_torch.entry import SELFSUP_OPTIONS
 from prifit_torch.geometry.convex_loss import convex_loss
 from prifit_torch.kernels import mean_shift as KM
 from prifit_tpu.ops.pallas.mean_shift import _ref_step, mean_shift_step_pallas
@@ -190,22 +191,32 @@ class LiveRowRecorder:
                 assert len(rows) <= max_num_clusters
 
 
+@pytest.mark.parametrize("options", [
+    {}, SELFSUP_OPTIONS, dict(SELFSUP_OPTIONS, if_cuboid=True)],
+    ids=["default", "options", "options_cuboid"])
 @pytest.mark.parametrize("iterations", [1, 3])
 def test_convex_loss_cotangents_live_at_centers_only(monkeypatch,
-                                                     iterations):
+                                                     iterations, options):
     """The convex loss on embeddings with 3 clusters per shape (B=2,
-    N=256, ``test_torch_grad.py``'s structured case): every cotangent of a
-    mean-shift step is live only at the shape's valid center ids, as the
-    backward kernel's row skipping assumes."""
+    N=256, ``test_torch_grad.py``'s structured case), with its default
+    terms and with every option on (entropy, intersection, pruning), for
+    ellipsoids and for cuboids: every cotangent of a mean-shift step is
+    live only at the shape's valid center ids, as the backward kernel's
+    row skipping assumes.  (The entropy term reaches the embeddings
+    directly; intersection and cuboid reach the modes through the fitted
+    primitives, as the chamfer does.)"""
     from test_torch_grad import STRUCT_KW, _structured  # imports JAX too
     rec = LiveRowRecorder(monkeypatch)
     X = torch.from_numpy(_structured(5, B, N)).requires_grad_()
     pts = torch.from_numpy(np.random.default_rng(6).normal(
         size=(B, N, 3)).astype(np.float32))
     kw = dict(STRUCT_KW, iterations=iterations)
-    out = convex_loss(pts, pts, X, **kw)
+    out = convex_loss(pts, pts, X, generator=torch.Generator().manual_seed(
+        iterations), **kw, **options)
     out.total.backward()
     assert out.clusters.num_clusters.tolist() == [3, 3]
+    if options:
+        assert out.intersection.item() > 0
     rec.check(iterations, kw["max_num_clusters"])
     assert all(len(rows) == 3 for _, live in rec.calls for rows in live)
 

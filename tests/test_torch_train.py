@@ -71,6 +71,46 @@ def _zero_grad_bias(name: str) -> bool:
         or name in ("conv1.bias", "sa3.mlp_bns.2.bias"))
 
 
+def jax_variables(model, rng, x, cls):
+    """Variables of the JAX ``model``, initialized on ``x``'s first 256
+    points, with batch-norm statistics drawn from ``rng``."""
+    xs = jnp.asarray(x[:, :256])
+    v = jax.jit(lambda r: model.init(
+        r, xs, jnp.asarray(cls), chamfer_points=xs, train=True,
+        include_convex_loss=True, quantile=0.5, msc_iterations=1,
+        max_num_clusters=2, n_per_prim=4))(
+        {"params": jax.random.PRNGKey(0),
+         "sampling": jax.random.PRNGKey(1),
+         "dropout": jax.random.PRNGKey(2),
+         "selfsup": jax.random.PRNGKey(3)})
+
+    def randomize(path, a):
+        name = str(path[-1].key)
+        if name.endswith("mean"):
+            return rng.normal(size=a.shape).astype(np.float32) * 0.1
+        return rng.uniform(0.5, 1.5, size=a.shape).astype(np.float32)
+
+    return {"params": jax.tree_util.tree_map(np.asarray, v["params"]),
+            "batch_stats": jax.tree_util.tree_map_with_path(
+                randomize, v["batch_stats"])}
+
+
+def blob_cloud(rng):
+    """``[B, N, 3]``: each cloud 3 gaussian blobs of equal size."""
+    lab = np.arange(N) % 3
+    return np.stack([np.eye(3)[rng.permutation(lab)] * 4.0
+                     + rng.normal(size=(N, 3)) * 0.3
+                     for _ in range(B)]).astype(np.float32)
+
+
+def with_xyz_gain(params):
+    """A copy of JAX ``params`` with fp1's weights on its xyz inputs
+    scaled by ``XYZ_GAIN``."""
+    params = jax.tree_util.tree_map(np.array, params)
+    params["fp1"]["PointMLP_0"]["w0"][16:22] *= XYZ_GAIN
+    return params
+
+
 @pytest.fixture(scope="module")
 def setup():
     """Data, JAX variables and the two jitted JAX ``compute`` functions,
@@ -84,26 +124,7 @@ def setup():
         target = rng.integers(0, PARTS, size=(B, N))
         model = get_module("pointnet2_part_seg_msg").get_model(
             num_parts=PARTS, compute_dtype="f32", dropout_rate=0.0)
-        xs = jnp.asarray(x[:, :256])
-        v = jax.jit(lambda r: model.init(
-            r, xs, jnp.asarray(cls), chamfer_points=xs, train=True,
-            include_convex_loss=True, quantile=0.5, msc_iterations=1,
-            max_num_clusters=2, n_per_prim=4))(
-            {"params": jax.random.PRNGKey(0),
-             "sampling": jax.random.PRNGKey(1),
-             "dropout": jax.random.PRNGKey(2),
-             "selfsup": jax.random.PRNGKey(3)})
-
-        def randomize(path, a):
-            name = str(path[-1].key)
-            if name.endswith("mean"):
-                return rng.normal(size=a.shape).astype(np.float32) * 0.1
-            return rng.uniform(0.5, 1.5, size=a.shape).astype(np.float32)
-
-        variables = {
-            "params": jax.tree_util.tree_map(np.asarray, v["params"]),
-            "batch_stats": jax.tree_util.tree_map_with_path(
-                randomize, v["batch_stats"])}
+        variables = jax_variables(model, rng, x, cls)
         xj, cj, tj = jnp.asarray(x), jnp.asarray(cls), jnp.asarray(target)
         rngs = {"sampling": jax.random.PRNGKey(4),
                 "dropout": jax.random.PRNGKey(5),
@@ -120,12 +141,8 @@ def setup():
                            .astype(jnp.float32))
             return loss, (upd["batch_stats"], acc)
 
-        lab = np.arange(N) % 3
-        blobs = np.stack([np.eye(3)[rng.permutation(lab)] * 4.0
-                          + rng.normal(size=(N, 3)) * 0.3
-                          for _ in range(B)]).astype(np.float32)
-        ss_params = jax.tree_util.tree_map(np.array, variables["params"])
-        ss_params["fp1"]["PointMLP_0"]["w0"][16:22] *= XYZ_GAIN
+        blobs = blob_cloud(rng)
+        ss_params = with_xyz_gain(variables["params"])
         bj = jnp.asarray(blobs)
 
         def selfsup(params, stats):
