@@ -37,6 +37,22 @@ counts set to 0 just before it and read just after:
     alpha 0.01), the same with cuboids, and the contrastive step on
     ACD-like labels.
 
+  - the part-seg trainer, ``prifit_torch.cli.train_partseg.main``, at
+    B=24, N=2048 with the recipe's self-sup settings and the default
+    dtype, on synthetic ShapeNet-Part and ACD trees written from a seed
+    (3 categories of 96 shapes of 2500 points with normals, 48 ACD shapes
+    of 6000 points): one epoch of 48 iterations (a supervised step and a
+    self-sup step each, with the host data pipeline) and the final eval
+    over the test split (72 clouds); its resume for a second epoch of 4
+    iterations (epoch, step and the self-sup ``beta`` restored); one
+    8-iteration epoch each with ``--fused_augment`` and with ``--ss_loss
+    contrastive``, and 48 iterations with ``--num_workers 0``.  It times each iteration against
+    the bare steps' medians above, the host pipeline alone and the
+    trainer's steps on its own batches, and the eval's clouds/s, and
+    evaluates the trained checkpoint with
+    ``prifit_torch.cli.testing`` on the card and on the CPU
+    (instance-average mIoU within 1e-2, accuracy within 0.5 points).
+
 It checks that every kernel was launched by the paths that run it, and
 no other, and that every cotangent the mean-shift backward gets on the
 self-sup paths (the f32 one and both with options) is live in at most 25
@@ -57,8 +73,11 @@ It prints:
 
   - the card's name and power limit (nvidia-smi);
   - the paths' times, peak memory and launch counts;
+  - the trainer's ms per iteration beside the bare steps' sum, its
+    launches per iteration and the eval's clouds/s;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the eight paths (and their sum), its error against the plain version,
+    the nine paths (and their sum; ``trainer`` is the whole first trainer
+    run with its eval) and per trainer iteration, its error against the plain version,
     and the times of the calls one forward or one step makes (kernel,
     plain version, library call) beside the least time the card could
     take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
@@ -1027,6 +1046,369 @@ def objective_paths(entry, kernels):
     return out
 
 
+# the trainer phase's synthetic ShapeNet-Part categories: synset and real
+# part ids (the JAX package's SEG_CLASSES)
+TRAINER_CATEGORIES = {"Airplane": ("02691156", [0, 1, 2, 3]),
+                      "Chair": ("03001627", [12, 13, 14, 15]),
+                      "Lamp": ("03636649", [24, 25, 26, 27])}
+# the recipe's self-sup settings (README.md:60-63, bench.py:71-72)
+TRAINER_FLAGS = ["--batch_size", str(B), "--npoint", str(N), "--selfsup",
+                 "--ss_dataset", "acd", "--quantile", "0.05",
+                 "--msc_iterations", "10", "--max_num_clusters", "25",
+                 "--n_per_prim", "256", "--chamfer_npoints", "5000",
+                 "--learning_rate", "0.01", "--lmbda", "1", "--alpha", "0.01",
+                 "--seed", "786"]
+# iterations of the timed trainer run: its walls spread by 2x from one
+# iteration to the next, so the median needs several dozen
+TRAINER_ITERS = 48
+# iterations of the resumed epoch
+RESUME_ITERS = 4
+# the trainer's other runs: name -> (flags, iterations); the last has no
+# loader worker threads (the batches are the same), to see what the
+# threads cost an iteration
+TRAINER_VARIANTS = {"fused_augment": (["--fused_augment"], 8),
+                    "contrastive": (["--ss_loss", "contrastive"], 8),
+                    "num_workers_0": (["--num_workers", "0"], TRAINER_ITERS)}
+# shapes a category in the synthetic tree: half train, a quarter val, a
+# quarter test, so the eval's clouds/s is read over 3 batches of B
+TRAINER_SHAPES = 96
+
+
+def _parts_cloud(rng, parts, n):
+    """A cloud of ``n`` points in one gaussian blob per part (centers 1
+    apart on average, spread 0.25) and the part of each point."""
+    centers = rng.normal(size=(len(parts), 3))
+    label = rng.integers(0, len(parts), n)
+    pts = centers[label] + 0.25 * rng.normal(size=(n, 3))
+    return pts.astype(np.float32), np.asarray(parts)[label]
+
+
+def write_shapenet_tree(root, n_per_cat=TRAINER_SHAPES, n_points=2500,
+                        seed=0):
+    """A synthetic ShapeNet-Part tree in the layout of
+    ``tests/fixtures.py::make_shapenet_fixture``: ``synsetoffset2category
+    .txt``, the three split jsons (first half train, next quarter val, the
+    rest test) and a text file a shape of xyz, unit normals and the part
+    label, with labels that follow the geometry (one blob a part)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "train_test_split"))
+    splits = {"train": [], "val": [], "test": []}
+    with open(os.path.join(root, "synsetoffset2category.txt"), "w") as f:
+        for name, (synset, _) in TRAINER_CATEGORIES.items():
+            f.write(f"{name}\t{synset}\n")
+    for name, (synset, parts) in TRAINER_CATEGORIES.items():
+        os.makedirs(os.path.join(root, synset))
+        for i in range(n_per_cat):
+            token = f"{name.lower()}{i:04d}"
+            pts, seg = _parts_cloud(rng, parts, n_points)
+            nrm = rng.normal(size=(n_points, 3))
+            nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+            data = np.concatenate([pts, nrm, seg[:, None]], axis=1)
+            np.savetxt(os.path.join(root, synset, token + ".txt"), data,
+                       fmt="%.6f")
+            split = "train" if i < n_per_cat // 2 else \
+                "val" if i < 3 * n_per_cat // 4 else "test"
+            splits[split].append(f"shape_data/{synset}/{token}")
+    for split, ids in splits.items():
+        with open(os.path.join(root, "train_test_split",
+                               f"shuffled_{split}_file_list.json"), "w") as f:
+            json.dump(ids, f)
+    return root
+
+
+def write_acd_tree(root, n_shapes=48, n_points=6000, n_components=6,
+                   seed=1):
+    """A synthetic ACD tree in the layout of ``tests/fixtures.py::
+    make_acd_fixture``: ``.npy`` files ``[n_points, 4]`` of xyz and the
+    component id, one blob a component."""
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "shapes")
+    os.makedirs(d)
+    for i in range(n_shapes):
+        pts, comp = _parts_cloud(rng, list(range(n_components)), n_points)
+        np.save(os.path.join(d, f"acd{i:04d}.npy"), np.concatenate(
+            [pts, comp[:, None].astype(np.float32)], axis=1))
+    return root
+
+
+class _WaitTimed:
+    """A prefetch stream that adds the host seconds its consumer spends
+    in ``__next__`` (waiting for the producer thread) to ``waits``."""
+
+    def __init__(self, stream, waits):
+        self.stream, self.waits = stream, waits
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        try:
+            return next(self.stream)
+        finally:
+            self.waits.append(time.perf_counter() - t0)
+
+    def close(self):
+        self.stream.close()
+
+
+def _trainer_run(train_partseg, args, kernels):
+    """``train_partseg.main(args)`` on the card with the launch counts
+    reset just before; per iteration (through its ``on_iteration`` hook,
+    after a synchronize) the wall clock and the counts, and the time the
+    iteration waited for its two prefetched batches.  Returns the
+    metrics, the iteration walls and waits but the first iteration's
+    (which starts the prefetch streams), the counts of the whole run and
+    of its last iteration."""
+    marks, waits = [], []
+
+    def on_iteration(epoch, i):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), kernels.launch_counts(),
+                      sum(waits)))
+
+    prefetch = train_partseg.prefetch_to_device
+    train_partseg.prefetch_to_device = \
+        lambda *a, **kw: _WaitTimed(prefetch(*a, **kw), waits)
+    kernels.reset_launch_counts()
+    try:
+        metrics = train_partseg.main(args, device="cuda",
+                                     on_iteration=on_iteration)
+    finally:
+        train_partseg.prefetch_to_device = prefetch
+    counts = kernels.launch_counts()
+    walls = [(b[0] - a[0], b[2] - a[2]) for a, b in zip(marks, marks[1:])]
+    last = {k: marks[-1][1][k] - marks[-2][1][k] for k in counts}
+    for k, v in metrics.items():
+        if not np.isfinite(v) and k != "best_chamfer_loss":
+            raise AssertionError(f"trainer metric {k} = {v}")
+    if not 0.0 <= metrics["instance_avg_iou"] <= 1.0:
+        raise AssertionError(f"trainer metrics {metrics}")
+    return metrics, walls, counts, last
+
+
+def _last_checkpoint(exp):
+    return torch.load(os.path.join(exp, "checkpoints", "last_model"),
+                      weights_only=False)
+
+
+def check_restored(state, epoch, ckpt):
+    """A checkpoint round trip on the card: the restored model (weights,
+    batch-norm statistics, ``beta``), the optimizer's state (Adam's step
+    and moments, on the model's device), ``step`` and ``epoch`` equal what
+    the file holds."""
+    for k, v in state.model.state_dict().items():
+        if not torch.equal(v.cpu(), ckpt["model_state_dict"][k]):
+            raise AssertionError(f"restored {k} differs")
+    saved = ckpt["optimizer_state_dict"]["state"]
+    restored = state.optimizer.state_dict()["state"]
+    if not saved or saved.keys() != restored.keys():
+        raise AssertionError("restored optimizer state differs")
+    for i, st in saved.items():
+        for k, t in st.items():
+            r = restored[i][k]
+            if not torch.equal(r.cpu(), t) or (
+                    k != "step" and r.device.type != "cuda"):
+                raise AssertionError(f"restored optimizer {i}.{k} differs")
+    if (state.step, epoch) != (ckpt["step"], ckpt["epoch"]):
+        raise AssertionError(f"restored step {state.step} epoch {epoch}")
+
+
+def trainer_breakdown(train_partseg, args, exp):
+    """Where a trainer iteration's time goes beside the bare steps: the
+    host pipeline alone (the loaders with their worker threads and the
+    two batch transforms, run in turn with no step and no copy to the
+    card: a warm-up iteration, then 8 timed) and the trainer's own steps
+    (``build_steps``) on the trainer's own batches, from its
+    ``last_model`` checkpoint, with no pipeline running beside them (a
+    warm-up, then 3 timed each).  The restore is checked by
+    :func:`check_restored`.  Returns (host seconds an iteration, the
+    supervised and self-sup steps' median seconds)."""
+    from prifit_torch.models import get_module
+    from prifit_torch.train.checkpoint import restore_checkpoint
+    from prifit_torch.train.state import create_train_state
+
+    def noop(*_):
+        return None
+
+    loaders = train_partseg.build_loaders(args, noop)
+    transforms = train_partseg.batch_transforms(args)
+    streams = [train_partseg.cycle(loader) for loader in loaders]
+
+    def host_iteration():
+        return [t(next(it)) for t, it in zip(transforms, streams)]
+
+    batches = host_iteration()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        host_iteration()
+    host = (time.perf_counter() - t0) / 8
+
+    mod = get_module(args.model)
+    state = create_train_state(train_partseg.build_model(
+        args, mod, "cuda"))
+    _, epoch = restore_checkpoint(os.path.join(exp, "checkpoints"),
+                                  "last_model", state)
+    check_restored(state, epoch, _last_checkpoint(exp))
+    sup_step, ss_step = train_partseg.build_steps(args, mod)
+    sup, ss = ([torch.as_tensor(a, device="cuda") for a in b]
+               for b in batches)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    runs = {"supervised": lambda: sup_step(state, *sup, 1e-3, 0.1, gen),
+            "selfsup": lambda: ss_step(state, *ss, 1e-3, 0.1, 1.0, gen)}
+    steps = {}
+    for name, run in runs.items():
+        run()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        steps[name] = sorted(times)[1]
+    return host, steps
+
+
+def trainer_phase(kernels, bare):
+    """The part-seg trainer (``python -m prifit_torch.cli.train_partseg``)
+    on the card at B=24, N=2048 with the recipe's self-sup settings and
+    the default encoder dtype, on synthetic trees
+    (:func:`write_shapenet_tree`: 3 categories of ``TRAINER_SHAPES``
+    shapes, 2500 points with normals; :func:`write_acd_tree`: 48 shapes
+    of 6000 points), for one epoch of ``TRAINER_ITERS`` iterations and
+    the final eval over the test split; then its resume for one more
+    epoch of ``RESUME_ITERS`` (``epoch``, ``step`` and ``beta`` must be
+    restored), and the runs of ``TRAINER_VARIANTS``
+    (``--fused_augment``, ``--ss_loss contrastive``, ``--num_workers
+    0``).  Times each iteration (a supervised step plus a self-sup step
+    with the host pipeline) against ``bare``, the same call's bare-step
+    medians, and :func:`trainer_breakdown`, and the eval's clouds/s
+    (``evaluation`` on the checkpoint, the test split's parsed clouds);
+    checks the eval of the checkpoint with ``cli/testing.py`` on the card
+    against the CPU (instance-avg mIoU within 1e-2, accuracy within 0.5
+    points: ties in the masked argmax may flip); and, in
+    :func:`trainer_breakdown`, restores ``last_model`` on the card
+    (:func:`check_restored`)."""
+    import shutil
+    import tempfile
+
+    from prifit_torch.cli import testing, train_partseg
+    from prifit_torch.cli.args_parser import parse_args
+    from prifit_torch.data import DataLoader, PartNormalDataset
+    from prifit_torch.eval.miou import evaluation, make_eval_forward
+    from prifit_torch.models import get_module
+    from prifit_torch.train.checkpoint import restore_params_only
+    from prifit_torch.train.state import create_train_state
+
+    os.makedirs(os.path.join(ROOT, "log"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
+                                                                   "log"))
+    try:
+        t0 = time.perf_counter()
+        sn = write_shapenet_tree(os.path.join(tmp, "shapenet"))
+        acd = write_acd_tree(os.path.join(tmp, "acd"))
+        write_s = time.perf_counter() - t0
+
+        def args_for(root, *extra):
+            return parse_args(TRAINER_FLAGS + [
+                "--data_root", sn, "--ss_path", acd, "--experiment_root",
+                os.path.join(tmp, root), "--epoch", "1", *extra])
+
+        out = {"write_s": write_s}
+        args = args_for("main", "--epoch_iters", str(TRAINER_ITERS))
+        metrics, walls, counts, last = _trainer_run(train_partseg, args,
+                                                    kernels)
+        missing = [k for k, v in counts.items() if v == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched by the trainer: "
+                                 f"{missing}")
+        if last["fps"] != 4 or last["mean_shift_bwd"] != last["mean_shift"] \
+                or last["mean_shift"] < args.msc_iterations:
+            raise AssertionError(f"a trainer iteration launched {last}")
+        exp = os.path.join(args.experiment_root,
+                           train_partseg.experiment_name(args))
+        names = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        if names != ["best_model", "last_model", "model_001"]:
+            raise AssertionError(f"trainer checkpoints {names}")
+        first = _last_checkpoint(exp)
+        beta1 = first["model_state_dict"]["beta"].item()
+        if (first["epoch"], first["step"]) != (0, 2 * TRAINER_ITERS) \
+                or abs(beta1 - 0.99 ** TRAINER_ITERS) > 1e-6:
+            raise AssertionError(f"checkpoint epoch {first['epoch']} step "
+                                 f"{first['step']} beta {beta1}")
+        out.update(metrics=metrics, walls=[w for w, _ in walls],
+                   waits=[w for _, w in walls], counts=counts, last=last,
+                   beta=beta1)
+        out["host"], out["own_steps"] = trainer_breakdown(
+            train_partseg, args, exp)
+
+        # resume from last_model for one more, shorter epoch
+        args.epoch, args.epoch_iters = 2, RESUME_ITERS
+        _, rwalls, _, _ = _trainer_run(train_partseg, args, kernels)
+        second = _last_checkpoint(exp)
+        beta2 = second["model_state_dict"]["beta"].item()
+        with open(os.path.join(exp, "train.log")) as f:
+            resumed = "Resumed from epoch 0" in f.read()
+        if not resumed or (second["epoch"], second["step"]) != (
+                1, 2 * (TRAINER_ITERS + RESUME_ITERS)) \
+                or abs(beta2 - 0.99 ** (TRAINER_ITERS + RESUME_ITERS)) > 1e-6:
+            raise AssertionError(f"resume: logged {resumed}, epoch "
+                                 f"{second['epoch']} step {second['step']} "
+                                 f"beta {beta2}")
+        out["resume"] = dict(walls=[w for w, _ in rwalls], beta=beta2,
+                             step=second["step"])
+
+        # the variants
+        for name, (extra, iters) in TRAINER_VARIANTS.items():
+            vargs = args_for(name, "--epoch_iters", str(iters), *extra)
+            _, vwalls, vcounts, vlast = _trainer_run(train_partseg, vargs,
+                                                     kernels)
+            clustering = [vlast[k] for k in CLUSTERING]
+            if (name == "contrastive") == any(clustering) or not vlast["fps"]:
+                raise AssertionError(f"{name} iteration launched {vlast}")
+            out[name] = dict(walls=[w for w, _ in vwalls],
+                             waits=[w for _, w in vwalls], counts=vcounts,
+                             last=vlast)
+
+        # the eval's clouds/s: evaluation() of the checkpoint on the test
+        # split, once to warm up, then three timed
+        ckpt = os.path.join(exp, "checkpoints", "best_model")
+        model = train_partseg.build_model(args, get_module(args.model),
+                                          "cuda")
+        restore_params_only(*os.path.split(ckpt), create_train_state(model),
+                            log=lambda *_: None)
+        loader = DataLoader(PartNormalDataset(
+            sn, npoints=N, split="test", rng=np.random.default_rng(0)),
+            B, drop_last=False)
+        clouds = len(loader.dataset)
+        forward = make_eval_forward(model)
+        ev_walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            evaluation(forward, loader, device="cuda", pad_to=B,
+                       log=lambda *_: None)
+            torch.cuda.synchronize()
+            ev_walls.append(time.perf_counter() - t0)
+        out["eval"] = dict(clouds=clouds, walls=ev_walls[1:])
+        del model, forward
+
+        # the eval CLI on the checkpoint, card against CPU
+        targs = args_for("main", "--pretrained_model", ckpt)
+        res = {side: testing.main(targs, device=dev, log=lambda *_: None)
+               for side, dev in (("card", "cuda"), ("cpu", "cpu"))}
+        d_iou = abs(res["card"]["instance_avg_iou"]
+                    - res["cpu"]["instance_avg_iou"])
+        d_acc = abs(res["card"]["accuracy"] - res["cpu"]["accuracy"])
+        if d_iou > 1e-2 or d_acc > 5e-3:
+            raise AssertionError(f"eval card vs cpu: {res}")
+        out["card_vs_cpu"] = res
+        out["bare"] = bare
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def g_row_share(entry, state, points, cls, gen, **options):
     """One more self-sup forward and backward (not counted) with the
     convex-loss ``options``, with a hook on every mean-shift step's
@@ -1543,6 +1925,63 @@ def log_kernels(results, smi):
                 f"dense")
 
 
+def _ms(walls):
+    return f"{sorted(walls)[len(walls) // 2] * 1e3:.1f}"
+
+
+def _spread(walls):
+    """The median, quartiles and range of ``walls`` (seconds) in ms."""
+    q = np.percentile(np.asarray(walls) * 1e3, [0, 25, 50, 75, 100])
+    return (f"median {q[2]:.1f} of {len(walls)}, quartiles {q[1]:.1f}-"
+            f"{q[3]:.1f}, range {q[0]:.1f}-{q[4]:.1f}")
+
+
+def log_trainer(tr, smi):
+    walls, bare = tr["walls"], tr["bare"]
+    it = sorted(walls)[len(walls) // 2]
+    steps = bare["supervised"] + bare["selfsup"]
+    log(f"trainer B={B} N={N} (train_partseg.main, mxsr, "
+        f"{TRAINER_ITERS} iterations): {it * 1e3:.1f} ms an iteration "
+        f"({_spread(walls)}, the first left out), bare steps "
+        f"{bare['supervised'] * 1e3:.1f} + {bare['selfsup'] * 1e3:.1f} = "
+        f"{steps * 1e3:.1f} ms (this call's medians), host pipeline gap "
+        f"{(it - steps) * 1e3:+.1f} ms ({100 * (it / steps - 1):+.1f}%) "
+        f"[{smi}]; waiting for the prefetched batches "
+        f"({_spread(tr['waits'])}); launches an iteration {tr['last']}; "
+        f"launches in the run "
+        f"(with the final eval) {tr['counts']}; final eval "
+        f"{tr['metrics']}; trees written in {tr['write_s']:.1f} s")
+    own = tr["own_steps"]
+    log(f"trainer breakdown: the host pipeline alone (loaders and batch "
+        f"transforms, serial, no step) {tr['host'] * 1e3:.1f} ms an "
+        f"iteration; the trainer's steps on its own batches with no "
+        f"pipeline beside them {own['supervised'] * 1e3:.1f} + "
+        f"{own['selfsup'] * 1e3:.1f} = "
+        f"{(own['supervised'] + own['selfsup']) * 1e3:.1f} ms [{smi}]")
+    r = tr["resume"]
+    log(f"trainer resume: epoch, step {r['step']} and beta restored (beta "
+        f"{tr['beta']:.6f} after epoch 1, {r['beta']:.6f} after epoch 2); "
+        f"{_ms(r['walls'])} ms an iteration")
+    for name, (extra, _) in TRAINER_VARIANTS.items():
+        v = tr[name]
+        log(f"trainer {' '.join(extra)}: {_ms(v['walls'])} ms an iteration "
+            f"({_spread(v['walls'])}), waiting "
+            f"for batches {_ms(v['waits'])} ms [{smi}]; launches an "
+            f"iteration {v['last']}")
+    ev = tr["eval"]
+    w = sorted(ev["walls"])[1]
+    log(f"trainer eval (evaluation() of the checkpoint, {ev['clouds']} test "
+        f"clouds at B={B}): {w * 1e3:.1f} ms, {ev['clouds'] / w:.1f} "
+        f"clouds/s (median of 3) [{smi}]")
+    c = tr["card_vs_cpu"]
+    log(f"trainer eval CLI card vs cpu: instance-avg mIoU "
+        f"{c['card']['instance_avg_iou']:.6f} / "
+        f"{c['cpu']['instance_avg_iou']:.6f}, class-avg mIoU "
+        f"{c['card']['class_avg_iou']:.6f} / {c['cpu']['class_avg_iou']:.6f}"
+        f", accuracy {c['card']['accuracy']:.6f} / "
+        f"{c['cpu']['accuracy']:.6f}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1630,6 +2069,10 @@ def main():
             log(f"  mean-shift backward cotangent g on {name}: at most "
                 f"{top} of {N} rows nonzero in a shape, {100 * share:.3f}% "
                 f"of rows on average over its launches")
+    bare = {name: sorted(train["auto"][name]["times"])[1]
+            for name in ("supervised", "selfsup")}
+    tr = trainer_phase(kernels, bare)
+    log_trainer(tr, smi)
     tc = train_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
         f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
@@ -1670,6 +2113,7 @@ def main():
         paths[f"supervised_step_{tag}"] = train[dt]["supervised"]["counts"]
         paths[f"selfsup_step_{tag}"] = train[dt]["selfsup"]["counts"]
     paths.update({name: r["counts"] for name, r in objectives.items()})
+    paths["trainer"] = tr["counts"]
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]
@@ -1678,6 +2122,7 @@ def main():
             replaces=k.replaces or SR_REPLACES, tpu_kernel=bool(k.replaces),
             launches=sum(c[name] for c in paths.values()),
             launches_by_path={p: c[name] for p, c in paths.items()},
+            launches_per_trainer_iteration=tr["last"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],

@@ -28,6 +28,8 @@ from typing import Callable
 import torch
 from torch.profiler import record_function
 
+from prifit_torch.data.augment_torch import augment_and_resample, \
+    standard_train_augment
 from prifit_torch.train.state import TrainState
 
 
@@ -46,10 +48,10 @@ def _apply_gradients(state: TrainState, lr: float) -> None:
     state.step += 1
 
 
-def _no_fused_augment(fused_augment: bool) -> None:
-    if fused_augment:
-        raise NotImplementedError(
-            "fused_augment: the on-device augment is not ported yet")
+def _augment_generator(generator):
+    if generator is None:
+        raise ValueError("fused_augment needs a generator for its draws")
+    return generator
 
 
 def make_supervised_step(model_loss: Callable,
@@ -57,12 +59,17 @@ def make_supervised_step(model_loss: Callable,
     """``model_loss(seg_logits, target, trans_feat) -> scalar`` (the model
     module's ``get_loss``) -> ``step(state, points, cls_onehot, target,
     lr, bn_momentum, generator=None, sr_key=None) -> (state, {loss,
-    acc})``, updating ``state`` in place."""
-    _no_fused_augment(fused_augment)
+    acc})``, updating ``state`` in place.  With ``fused_augment`` the
+    step first augments ``points`` on the device
+    (:func:`~prifit_torch.data.augment_torch.standard_train_augment`,
+    drawing from ``generator`` before the forward does)."""
 
     def step(state: TrainState, points, cls_onehot, target, lr: float,
              bn_momentum: float, generator: torch.Generator | None = None,
              sr_key=None):
+        if fused_augment:
+            points = standard_train_augment(
+                points, generator=_augment_generator(generator))
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         with record_function("train_forward"):
@@ -88,13 +95,20 @@ def make_selfsup_step(*, fused_augment: bool = False,
     lmbda, generator=None, sr_key=None) -> (state, {ss_loss,
     chamfer_loss})`` with
     ``ss_loss = mean(total_loss) * lmbda``, updating ``state`` in
-    place."""
-    _no_fused_augment(fused_augment)
+    place.  With ``fused_augment`` the step first augments
+    ``chamfer_points`` on the device and resamples ``points`` from it
+    (:func:`~prifit_torch.data.augment_torch.augment_and_resample`, at
+    ``points``' point count and channels, drawing from ``generator``
+    before the forward does); ``points`` is then only a placeholder."""
     kwargs = {"include_convex_loss": True, **convex_kwargs}
 
     def step(state: TrainState, points, cls_onehot, chamfer_points,
              lr: float, bn_momentum: float, lmbda: float,
              generator: torch.Generator | None = None, sr_key=None):
+        if fused_augment:
+            chamfer_points, points = augment_and_resample(
+                chamfer_points, points.shape[1], points.shape[-1],
+                generator=_augment_generator(generator))
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         with record_function("train_forward"):

@@ -270,10 +270,16 @@ def test_training_in_mixed_dtypes_runs(compute_dtype):
 
 
 def test_fused_augment_raises():
-    with pytest.raises(NotImplementedError, match="augment"):
-        make_supervised_step(get_loss, fused_augment=True)
-    with pytest.raises(NotImplementedError, match="augment"):
-        make_selfsup_step(fused_augment=True)
+    """The fused augment is ported; what still raises is a fused step
+    without a generator to draw its augmentation from."""
+    x = torch.zeros((1, 64, 3))
+    cls = torch.zeros((1, 16))
+    with pytest.raises(ValueError, match="augment"):
+        make_supervised_step(get_loss, fused_augment=True)(
+            None, x, cls, torch.zeros((1, 64), dtype=torch.long), 1e-3, 0.1)
+    with pytest.raises(ValueError, match="augment"):
+        make_selfsup_step(fused_augment=True)(
+            None, x, cls, x, 1e-3, 0.1, 1.0)
 
 
 def _structured(seed, B, N, D=128, k=3, noise=0.2):
