@@ -52,6 +52,17 @@ counts set to 0 just before it and read just after:
     evaluates the trained checkpoint with
     ``prifit_torch.cli.testing`` on the card and on the CPU
     (instance-average mIoU within 1e-2, accuracy within 0.5 points).
+  - the self-supervised pretrainer,
+    ``prifit_torch.cli.pretrain_partseg.main`` with ``--model
+    pretrain_pointnet2_part_seg_msg --l2_norm`` at B=24, N=2048 with the
+    recipe's self-sup settings and the default dtype, on 240 synthetic
+    ACD shapes of 6000 points, for 5 epochs of 8 iterations with 2 val
+    batches each (``model_005``, ``best_model``, ``metrics.jsonl``; each
+    iteration's and val batch's launches checked exactly); a contrastive
+    pretrain epoch (no clustering kernel); ``train_partseg`` warm-started
+    from the pretrain's ``best_model`` (the restored weights equal the
+    file's before the first step) and ``train_partseg`` runs with
+    ``--extra_layers`` and with ``--reconstruct``, 8 iterations each.
 
 It checks that every kernel was launched by the paths that run it, and
 no other, and that every cotangent the mean-shift backward gets on the
@@ -68,19 +79,29 @@ convex loss in the embeddings on structured embeddings, with its default
 terms and with every option (for ellipsoids and for cuboids, the
 intersection term nonzero); one B=2 f32 self-sup step with every option,
 for ellipsoids and for cuboids (losses); and one B=2 f32 contrastive step
-(the loss and every gradient), each with the same draws on both sides.
+(the loss and every gradient), each with the same draws on both sides;
+and for the pretrainer's models one B=2 f32 self-sup step each of the
+pretrain model with ``l2_norm`` and of ``extra_layers``, on 3 blobs with
+more than one cluster a shape (losses, every gradient and the returned
+embedding, the pretrain one of unit rows), a ``reconstruct`` forward's
+``total_loss`` and ``chamfer_loss_dense``.
 It prints:
 
   - the card's name and power limit (nvidia-smi);
   - the paths' times, peak memory and launch counts;
   - the trainer's ms per iteration beside the bare steps' sum, its
     launches per iteration and the eval's clouds/s;
+  - the pretrainer's ms per iteration beside the bare self-sup step and
+    per val batch, with the launches of each;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the nine paths (and their sum; ``trainer`` is the whole first trainer
-    run with its eval) and per trainer iteration, its error against the plain version,
-    and the times of the calls one forward or one step makes (kernel,
-    plain version, library call) beside the least time the card could
-    take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
+    the thirteen paths (and their sum; ``trainer`` is the whole first
+    trainer run with its eval, ``pretrainer`` and ``pretrain_val`` the
+    pretrain run's iterations and val batches, ``extra_layers`` and
+    ``reconstruct`` those trainer runs) and per trainer iteration, per
+    pretrain iteration and per pretrain val batch, its error against the
+    plain version, and the times of the calls one forward or one step
+    makes (kernel, plain version, library call) beside the least time the
+    card could take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
     false); the mean-shift backward's row also has, under ``sparse``, the
     same numbers for cotangents live in 1 and in 25 rows a shape, NMS's
     under ``inputs`` its numbers on each of its four inputs, the
@@ -1409,6 +1430,351 @@ def trainer_phase(kernels, bare):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the pretrainer phase: ACD shapes (8 iterations an epoch and 2 val
+# batches at B), epochs, the ShapeNet-Part shapes a category of its
+# fine-tuning tree, and the iterations of each trainer run
+PRETRAIN_SHAPES = 240
+PRETRAIN_EPOCHS = 5
+FINETUNE_SHAPES = 16
+VARIANT_ITERS = 8
+PRETRAIN_FLAGS = ["--model", "pretrain_pointnet2_part_seg_msg", "--l2_norm"]
+
+
+def expected_step_counts(r, backward=True):
+    """One ``mxsr`` self-sup step's launches (``backward``) or one eval
+    forward's with the convex loss, where the clustering ran ``r``
+    bandwidth candidates for some shape (2 when a shape overflowed the 25
+    slots at the first)."""
+    c = {"fps": 2, "gather": 10, "bandwidth": r, "mean_shift": 10 * r,
+         "nms": 3 * r, "mean_shift_bwd": 10 * r if backward else 0,
+         "max_bwd_cnt_gsm": 6 if backward else 0,
+         "max_bwd_dz": 6 if backward else 0,
+         "sr_bf16": 40 if backward else 0}
+    return c
+
+
+def _check_counts(got, what, backward=True):
+    """``got`` is one step's or val batch's launches for 1 or 2 bandwidth
+    candidates; returns that number."""
+    for r in (1, 2):
+        if got == expected_step_counts(r, backward):
+            return r
+    raise AssertionError(f"{what} launched {got}, not "
+                         f"{expected_step_counts(1, backward)}")
+
+
+def _pretrain_run(pretrain, args, kernels):
+    """``pretrain.main(args)`` on the card with the launch counts reset
+    just before; per train iteration and per val batch (through its
+    hooks, after a synchronize) the wall clock and the counts.  Returns
+    the best val loss, the iteration walls within an epoch (an epoch's
+    first iteration waits for its new prefetch stream, so the walls after
+    it), the walls of each epoch's first val batch (which waits for the
+    val stream's first batch) and of the others, and each iteration's
+    and val batch's launches."""
+    marks = []
+
+    def mark(kind):
+        def hook(epoch, i):
+            torch.cuda.synchronize()
+            marks.append((kind, epoch, i, time.perf_counter(),
+                          kernels.launch_counts()))
+        return hook
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    zero = kernels.launch_counts()
+    best = pretrain.main(args, device="cuda", on_iteration=mark("it"),
+                         on_val_batch=mark("val"))
+    out = dict(best=best, total_s=time.perf_counter() - t0, walls=[],
+               val_first_walls=[], val_walls=[], it_counts=[], val_counts=[])
+    prev = ("start", -1, -1, t0, zero)
+    for m in marks:
+        diff = {k: m[4][k] - prev[4][k] for k in zero}
+        (out["it_counts"] if m[0] == "it" else out["val_counts"]).append(
+            diff)
+        if m[0] == "it" and prev[0] == "it" and prev[1] == m[1]:
+            out["walls"].append(m[3] - prev[3])
+        elif m[0] == "val":
+            out["val_walls" if m[2] else "val_first_walls"].append(
+                m[3] - prev[3])
+        prev = m
+    return out
+
+
+def _sum_counts(counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def pretrainer_phase(kernels, bare):
+    """The self-supervised pretrainer (``python -m
+    prifit_torch.cli.pretrain_partseg``) on the card at B=24, N=2048 with
+    ``--model pretrain_pointnet2_part_seg_msg --l2_norm``, the recipe's
+    self-sup settings and the default dtype (``mxsr``), on a synthetic
+    ACD tree of ``PRETRAIN_SHAPES`` shapes of 6000 points (192 train, 8
+    iterations an epoch; 48 val, 2 batches), for ``PRETRAIN_EPOCHS``
+    epochs: it must write ``model_005``, ``best_model`` and one
+    ``metrics.jsonl`` line an epoch; each iteration launches what one
+    ``mxsr`` self-sup step does and each val batch what an eval forward
+    with the convex loss does (:func:`expected_step_counts`); ``beta``
+    decays once a step.  Then a contrastive pretrain epoch (no clustering
+    kernel), ``train_partseg`` warm-started from the pretrain's
+    ``best_model`` (the restored weights equal the file's before the
+    first step; entries it lacks keep the fresh init) for
+    ``VARIANT_ITERS`` iterations, and ``train_partseg`` runs with
+    ``--extra_layers`` and with ``--reconstruct`` of ``VARIANT_ITERS``
+    iterations, on a small ShapeNet-Part tree.  Times each iteration
+    and val batch against ``bare``, the same call's bare-step medians."""
+    import shutil
+    import tempfile
+
+    from prifit_torch.cli import pretrain_partseg, train_partseg
+    from prifit_torch.cli.args_parser import parse_args
+
+    os.makedirs(os.path.join(ROOT, "log"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pre_",
+                           dir=os.path.join(ROOT, "log"))
+    try:
+        t0 = time.perf_counter()
+        acd = write_acd_tree(os.path.join(tmp, "acd"), PRETRAIN_SHAPES)
+        sn = write_shapenet_tree(os.path.join(tmp, "shapenet"),
+                                 FINETUNE_SHAPES)
+        out = {"write_s": time.perf_counter() - t0, "bare": bare}
+
+        def pre_args(name, *extra):
+            return parse_args(TRAINER_FLAGS + PRETRAIN_FLAGS + [
+                "--ss_path", acd, "--experiment_root",
+                os.path.join(tmp, name), *extra])
+
+        args = pre_args("pretrain", "--epoch", str(PRETRAIN_EPOCHS))
+        run = _pretrain_run(pretrain_partseg, args, kernels)
+        exp = os.path.join(args.experiment_root, "pretrain_"
+                           + train_partseg.experiment_name(args))
+        names = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        if names != ["best_model", f"model_{PRETRAIN_EPOCHS:03d}"]:
+            raise AssertionError(f"pretrain checkpoints {names}")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        vals = [line["val_loss"] for line in lines]
+        iters = len(run["it_counts"])
+        if len(lines) != PRETRAIN_EPOCHS or not all(np.isfinite(vals)) \
+                or run["best"] != min(vals) \
+                or iters != PRETRAIN_EPOCHS * (PRETRAIN_SHAPES * 4 // 5 // B):
+            raise AssertionError(f"pretrain metrics {lines}, {iters} "
+                                 f"iterations")
+        last = torch.load(os.path.join(exp, "checkpoints",
+                                       f"model_{PRETRAIN_EPOCHS:03d}"),
+                          weights_only=False)
+        beta = last["model_state_dict"]["beta"].item()
+        if last["step"] != iters or abs(beta - 0.99 ** iters) > 1e-6:
+            raise AssertionError(f"pretrain step {last['step']} beta {beta}")
+        run["retries"] = [_check_counts(c, f"pretrain iteration {i}") - 1
+                          for i, c in enumerate(run["it_counts"])]
+        run["val_retries"] = [
+            _check_counts(c, f"pretrain val batch {i}", backward=False) - 1
+            for i, c in enumerate(run["val_counts"])]
+        run.update(vals=vals, beta=beta)
+        out["pretrain"] = run
+
+        cargs = pre_args("contrastive", "--epoch", "1", "--ss_loss",
+                         "contrastive")
+        crun = _pretrain_run(pretrain_partseg, cargs, kernels)
+        for c in crun["it_counts"] + crun["val_counts"]:
+            if any(c[k] for k in CLUSTERING) or c["fps"] != 2:
+                raise AssertionError(f"a contrastive pretrain step "
+                                     f"launched {c}")
+        out["contrastive"] = crun
+
+        # fine-tuning from the pretrain's best_model: the restore is
+        # checked where the trainer makes it, before its first step
+        best = os.path.join(exp, "checkpoints", "best_model")
+        saved = torch.load(best, weights_only=False)["model_state_dict"]
+        restore = train_partseg.restore_params_only
+        restored = {}
+
+        def checked_restore(d, n, state, log=print):
+            fresh = {k: v.cpu().clone()
+                     for k, v in state.model.state_dict().items()}
+            state = restore(d, n, state, log=log)
+            for k, v in state.model.state_dict().items():
+                if not torch.equal(v.cpu(), saved.get(k, fresh[k])):
+                    raise AssertionError(f"warm start: {k} differs")
+            restored.update(n=len(fresh), from_file=sum(
+                k in saved for k in fresh))
+            return state
+
+        def args_for(name, *extra):
+            return parse_args(TRAINER_FLAGS + [
+                "--data_root", sn, "--ss_path", acd, "--experiment_root",
+                os.path.join(tmp, name), "--epoch", "1", "--epoch_iters",
+                str(VARIANT_ITERS), *extra])
+
+        train_partseg.restore_params_only = checked_restore
+        try:
+            fargs = args_for("finetune", "--pretrained_model", best)
+            _, fwalls, fcounts, flast = _trainer_run(train_partseg, fargs,
+                                                     kernels)
+        finally:
+            train_partseg.restore_params_only = restore
+        if not restored or restored["from_file"] != restored["n"]:
+            raise AssertionError(f"warm start restored {restored}")
+        out["finetune"] = dict(walls=[w for w, _ in fwalls], counts=fcounts,
+                               last=flast, restored=restored)
+
+        for name in ("extra_layers", "reconstruct"):
+            vargs = args_for(name, f"--{name}")
+            _, vwalls, vcounts, vlast = _trainer_run(train_partseg, vargs,
+                                                     kernels)
+            missing = [k for k, v in vlast.items() if v == 0
+                       and not (name == "extra_layers" and k == "sr_bf16")]
+            if missing or vlast["fps"] != 4 \
+                    or vlast["mean_shift_bwd"] != vlast["mean_shift"]:
+                raise AssertionError(f"a {name} iteration launched {vlast}")
+            out[name] = dict(walls=[w for w, _ in vwalls], counts=vcounts,
+                             last=vlast)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def variant_state(dev, pretrain=False, xyz_gain=None, **kw):
+    """An f32 train state of a model variant on ``dev`` from the seed-0
+    weights, dropout off: the pretrain model (``pretrain``, with ``kw``
+    such as ``l2_norm``), or ``pointnet2_part_seg_msg`` with ``kw``
+    (``extra_layers``, ``reconstruct``); ``xyz_gain`` scales the weights
+    on the xyz inputs of the first layer that reads fp1's skip
+    (``fp1_embed_conv1`` under ``extra_layers``, else fp1's first
+    conv)."""
+    from prifit_torch.entry import init_weights
+    from prifit_torch.models import pointnet2_part_seg_msg as msg
+    from prifit_torch.models import pretrain_pointnet2_part_seg_msg as pre
+    from prifit_torch.train.state import create_train_state
+    mod = pre if pretrain else msg
+    model = mod.get_model(num_parts=50, compute_dtype="f32",
+                          dropout_rate=0.0, device="cpu", **kw)
+    init_weights(model, torch.Generator().manual_seed(0))
+    if xyz_gain is not None:
+        layer = model.fp1_embed_conv1 if kw.get("extra_layers") \
+            else model.fp1.mlp_convs[0]
+        with torch.no_grad():
+            layer.weight[:, 16:22] *= xyz_gain
+    return create_train_state(model.to(dev).train())
+
+
+def blob_points(n=N, seed=31):
+    """``[2, n, 3]``: each cloud 3 gaussian blobs 4 apart (spread 0.3),
+    so that an embedding that follows position gives 3 clusters."""
+    rng = np.random.default_rng(seed)
+    lab = np.arange(n) % 3
+    return torch.as_tensor(np.stack([
+        np.eye(3)[rng.permutation(lab)] * 4.0 + rng.normal(size=(n, 3)) * 0.3
+        for _ in range(2)]).astype(np.float32))
+
+
+# one mean-shift step, as the CPU tests of the variants: after two, the
+# modes of a cluster agree to f32 rounding and which one is the center is
+# a rounding tie that the card and the CPU may break differently
+ONE_STEP = dict(quantile=0.05, msc_iterations=1, max_num_clusters=6,
+                n_per_prim=256, num_bandwidth_candidates=2)
+
+
+def variants_card_vs_cpu(entry, sides=(("card", "cuda"), ("cpu", "cpu"))):
+    """Card against CPU at B=2, f32, the same draws on both sides
+    (dropout off, FPS from index 0, the eigenvector signs aligned):
+
+    - the pretrain model's self-sup step with ``l2_norm`` and an
+      ``extra_layers`` self-sup step, each on the blob cloud with the
+      xyz weights of the first layer after fp1's skip scaled by 30 so
+      that the embedding follows position (more than 1 cluster a shape,
+      asserted; with 1 the loss does not depend on the embedding, nor on
+      ``l2_norm``, and the encoder's gradients are rounding noise), one
+      mean-shift step: ss_loss and chamfer within 1e-4 relative, every
+      gradient within 5e-2 of the CPU gradient's norm, and an eval
+      forward's embedding within 1e-4 of the CPU's largest entry; the
+      pretrain embedding's rows of norm 1 within 1e-5 (the convex loss
+      normalizes the embedding itself, so ``l2_norm`` moves its loss
+      only by rounding);
+    - a ``reconstruct`` train-mode forward's ``total_loss`` (the convex
+      loss plus the AtlasNet chamfer) within 1e-4 relative;
+    - ``chamfer_loss_dense`` of 3025 against 2048 points within 1e-5
+      relative."""
+    from prifit_torch.models.common import chamfer_loss_dense
+    from prifit_torch.train.steps import make_selfsup_step
+    ts = entry.TRAIN_SETTINGS
+    _, points, cls, _ = entry.train_flagship(2, N, device="cpu",
+                                             compute_dtype="f32")
+    blobs = blob_points()
+    steps = {"pretrain": dict(pretrain=True, l2_norm=True),
+             "extra_layers": dict(extra_layers=True)}
+    res = {"clusters": {}}
+    for what, kw in steps.items():
+        with torch.no_grad():
+            nc = variant_state("cpu", xyz_gain=30.0, **kw).model(
+                blobs, cls, chamfer_points=blobs, include_convex_loss=True,
+                **ONE_STEP).convex.clusters.num_clusters
+        if not bool((nc > 1).all()):
+            raise AssertionError(f"{what} on the blobs: {nc} clusters")
+        res["clusters"][what] = nc.tolist()
+    for side, dev in sides:
+        r = res[side] = {}
+        p, c, b = points.to(dev), cls.to(dev), blobs.to(dev)
+        for what, kw in steps.items():
+            state = variant_state(dev, xyz_gain=30.0, **kw)
+            with torch.no_grad(), eigh_signs_from_card():
+                r[what + "_embedding"] = state.model.eval()(
+                    b, c, chamfer_points=b, include_convex_loss=True,
+                    **ONE_STEP).embedding.cpu()
+            state.model.train()
+            with eigh_signs_from_card():
+                _, m = make_selfsup_step(**ONE_STEP)(
+                    state, b, c, b, ts["lr"], ts["bn_momentum"], ts["lmbda"])
+            r[what] = (m["ss_loss"].item(), m["chamfer_loss"].item())
+            r[what + "_grads"] = {n: q.grad.float().cpu() for n, q in
+                                  state.model.named_parameters()}
+
+        model = variant_state(dev, reconstruct=True).model
+        with torch.no_grad(), eigh_signs_from_card():
+            out = model(p, c, chamfer_points=p, include_convex_loss=True,
+                        **entry.BENCH_KWARGS)
+        r["reconstruct"] = (out.total_loss.item(),
+                            out.recon_points.shape[1])
+
+        g = torch.Generator().manual_seed(15)
+        x, y = torch.randn((2, 3025, 3), generator=g), points
+        r["chamfer"] = chamfer_loss_dense(x.to(dev), y.to(dev)).item()
+    g, c = res["card"], res["cpu"]
+    for what, i in (("pretrain", 0), ("pretrain", 1), ("extra_layers", 0),
+                    ("extra_layers", 1), ("reconstruct", 0)):
+        a, b = g[what][i], c[what][i]
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"card vs cpu {what}[{i}] card {a} cpu {b}")
+    if g["reconstruct"][1] != 25 * 121:
+        raise AssertionError(f"AtlasNet gave {g['reconstruct'][1]} points")
+    if not abs(g["chamfer"] - c["chamfer"]) <= 1e-5 * abs(c["chamfer"]):
+        raise AssertionError(f"chamfer_loss_dense card {g['chamfer']} cpu "
+                             f"{c['chamfer']}")
+    err, unit = {}, None
+    for what in steps:
+        err[what] = _worst_grad_err(g[what + "_grads"], c[what + "_grads"],
+                                    f"{what} card vs cpu")
+        if not err[what] <= 5e-2:
+            raise AssertionError(f"{what} gradients card vs cpu: largest "
+                                 f"error {err[what]} of the norm")
+        ge, ce = g.pop(what + "_embedding"), c.pop(what + "_embedding")
+        if not float((ge - ce).abs().max()) <= 1e-4 * float(ce.abs().max()):
+            raise AssertionError(f"{what} embedding card vs cpu")
+        del g[what + "_grads"], c[what + "_grads"]
+        if what == "pretrain":
+            unit = float((torch.linalg.norm(ge, dim=-1) - 1).abs().max())
+    # the convex loss normalizes the embedding itself, so l2_norm shows
+    # only in the embedding the model returns
+    if not unit <= 1e-5:
+        raise AssertionError(f"pretrain l2_norm: embedding norms off 1 by "
+                             f"{unit}")
+    return dict(card=g, cpu=c, grad_err=err, clusters=res["clusters"],
+                unit_err=unit)
+
+
 def g_row_share(entry, state, points, cls, gen, **options):
     """One more self-sup forward and backward (not counted) with the
     convex-loss ``options``, with a hook on every mean-shift step's
@@ -1472,12 +1838,14 @@ class eigh_signs_from_card:
 
 
 # biases whose gradient is analytically zero, so rounding noise on both
-# sides: the dense biases a batch norm follows, and sa3's last batch-norm
-# bias, whose shift fp3's first batch norm removes
+# sides: the dense biases a batch norm follows (also the extra_layers
+# tower's), and sa3's last batch-norm bias, whose shift fp3's first batch
+# norm removes
 def _zero_grad_bias(name):
     return name.endswith(".bias") and (
         ".conv_blocks." in name or ".mlp_convs." in name
-        or name in ("conv1.bias", "sa3.mlp_bns.2.bias"))
+        or name in ("conv1.bias", "sa3.mlp_bns.2.bias", "conv1_embed.bias",
+                    "conv2_embed.bias"))
 
 
 def _worst_grad_err(grads, ref, what):
@@ -1982,6 +2350,41 @@ def log_trainer(tr, smi):
         f"{c['cpu']['accuracy']:.6f}")
 
 
+def log_pretrainer(pre, smi):
+    run, bare = pre["pretrain"], pre["bare"]
+    it = sorted(run["walls"])[len(run["walls"]) // 2]
+    iters = len(run["it_counts"]) // PRETRAIN_EPOCHS
+    log(f"pretrainer B={B} N={N} (pretrain_partseg.main, "
+        f"{' '.join(PRETRAIN_FLAGS[1:])}, mxsr, {PRETRAIN_EPOCHS} epochs of "
+        f"{iters} iterations): {it * 1e3:.1f} ms an iteration "
+        f"({_spread(run['walls'])}, each epoch's first left out), bare mxsr "
+        f"self-sup step {bare['selfsup'] * 1e3:.1f} ms (this call's median), "
+        f"gap {(it - bare['selfsup']) * 1e3:+.1f} ms; "
+        f"a val batch: an epoch's first {_spread(run['val_first_walls'])}, "
+        f"the others {_spread(run['val_walls'])} [{smi}]; launches an "
+        f"iteration {run['it_counts'][-1]}, a val batch "
+        f"{run['val_counts'][-1]}; second bandwidth candidate in "
+        f"{sum(run['retries'])} iterations and {sum(run['val_retries'])} val "
+        f"batches; val losses {run['vals']}; beta {run['beta']:.6f}; the "
+        f"run {run['total_s']:.1f} s; trees written in "
+        f"{pre['write_s']:.1f} s")
+    c = pre["contrastive"]
+    log(f"pretrainer --ss_loss contrastive (1 epoch): {_ms(c['walls'])} ms "
+        f"an iteration ({_spread(c['walls'])}), val batches "
+        f"{[round(w * 1e3, 1) for w in c['val_first_walls'] + c['val_walls']]}"
+        f" ms [{smi}]; launches an iteration {c['it_counts'][-1]}")
+    f = pre["finetune"]
+    log(f"train_partseg --pretrained_model <pretrain best_model>: "
+        f"{f['restored']['from_file']} of {f['restored']['n']} entries "
+        f"restored from the file, equal to it before the first step; "
+        f"{_ms(f['walls'])} ms an iteration [{smi}]")
+    for name in ("extra_layers", "reconstruct"):
+        v = pre[name]
+        log(f"train_partseg --{name} ({VARIANT_ITERS} iterations): "
+            f"{_ms(v['walls'])} ms an iteration ({_spread(v['walls'])}) "
+            f"[{smi}]; launches an iteration {v['last']}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2073,6 +2476,8 @@ def main():
             for name in ("supervised", "selfsup")}
     tr = trainer_phase(kernels, bare)
     log_trainer(tr, smi)
+    pre = pretrainer_phase(kernels, bare)
+    log_pretrainer(pre, smi)
     tc = train_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
         f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
@@ -2107,6 +2512,18 @@ def main():
     lg, lc, err = contrastive_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32, contrastive: loss {lg:.7f} (card) "
         f"{lc:.7f} (cpu), largest gradient error {err:.4g} of the norm")
+    vc = variants_card_vs_cpu(entry)
+    g, c = vc["card"], vc["cpu"]
+    log(f"card vs cpu B=2 f32 on blobs (clusters {vc['clusters']}): "
+        f"pretrain l2_norm self-sup step (ss_loss, chamfer) "
+        f"{g['pretrain']} / {c['pretrain']}, extra_layers self-sup step "
+        f"{g['extra_layers']} / {c['extra_layers']}, largest gradient "
+        f"errors {vc['grad_err']} of the norm, pretrain embedding norms "
+        f"off 1 by {vc['unit_err']:.3g}; reconstruct forward "
+        f"total_loss "
+        f"{g['reconstruct'][0]:.7f} / {c['reconstruct'][0]:.7f} "
+        f"({g['reconstruct'][1]} AtlasNet points); chamfer_loss_dense "
+        f"{g['chamfer']:.7f} / {c['chamfer']:.7f}")
 
     paths = {"eval_forward": counts}
     for dt, tag in (("auto", "mxsr"), ("f32", "f32")):
@@ -2114,6 +2531,10 @@ def main():
         paths[f"selfsup_step_{tag}"] = train[dt]["selfsup"]["counts"]
     paths.update({name: r["counts"] for name, r in objectives.items()})
     paths["trainer"] = tr["counts"]
+    paths["pretrainer"] = _sum_counts(pre["pretrain"]["it_counts"])
+    paths["pretrain_val"] = _sum_counts(pre["pretrain"]["val_counts"])
+    paths["extra_layers"] = pre["extra_layers"]["counts"]
+    paths["reconstruct"] = pre["reconstruct"]["counts"]
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]
@@ -2123,6 +2544,10 @@ def main():
             launches=sum(c[name] for c in paths.values()),
             launches_by_path={p: c[name] for p, c in paths.items()},
             launches_per_trainer_iteration=tr["last"][name],
+            launches_per_pretrain_iteration=pre["pretrain"]["it_counts"][-1][
+                name],
+            launches_per_pretrain_val_batch=pre["pretrain"]["val_counts"][-1][
+                name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],

@@ -22,9 +22,11 @@ the start of each epoch, so a resumed run draws what an uninterrupted
 one would.
 
 Not ported yet, and refused with ``NotImplementedError``: ``--sp_points``
-above 1 (ROADMAP.md §1 item 5), any ``--model`` but
-``pointnet2_part_seg_msg``, and its ``--extra_layers`` and
-``--reconstruct`` variants (§1 item 4).
+above 1 (ROADMAP.md §1 item 5) and any ``--model`` but
+``pointnet2_part_seg_msg`` (with its ``--extra_layers`` and
+``--reconstruct`` variants) and ``pretrain_pointnet2_part_seg_msg`` (§1
+item 4).  ``--pretrained_model`` takes the pretrainer's checkpoints
+(:mod:`prifit_torch.cli.pretrain_partseg`) as well as this trainer's.
 
 Usage (canonical recipe, README.md:60-63):
   python -m prifit_torch.cli.train_partseg --seed 786 --alpha 0.01 \\
@@ -120,23 +122,26 @@ def check_supported(args) -> None:
             f"--sp_points {args.sp_points}: point-axis parallelism is not "
             f"ported yet (ROADMAP.md §1 item 5)")
     get_module(args.model)
-    if args.extra_layers or args.reconstruct:
-        raise NotImplementedError(
-            "--extra_layers / --reconstruct: these variants of "
-            "pointnet2_part_seg_msg are not ported yet (ROADMAP.md §1 "
-            "item 4)")
 
 
 def build_model(args, mod, device):
     """The model of ``args`` (reference ``train_partseg_shapenet.py:
-    219-232``) on ``device``, with lecun-normal weights from ``--seed``
+    219-232``, the JAX trainer's ``build_model``) on ``device``, with
+    lecun-normal weights from ``--seed``
     (:func:`prifit_torch.entry.init_weights`) and fresh batch-norm
-    statistics.  ``--l2_norm`` is accepted and unused, as in the JAX
-    model."""
-    model = mod.get_model(num_parts=args.num_parts,
-                          normal_channel=args.normal,
-                          compute_dtype=args.encoder_dtype,
-                          stage_dtypes=args.stage_dtypes, device="cpu")
+    statistics: ``--reconstruct`` goes to either model, ``--l2_norm`` to
+    ``pretrain_pointnet2_part_seg_msg`` only and ``--extra_layers`` to
+    ``pointnet2_part_seg_msg`` only (the JAX part-seg model takes an
+    ``l2_norm`` and never reads it)."""
+    kwargs = dict(num_parts=args.num_parts, normal_channel=args.normal,
+                  reconstruct=args.reconstruct,
+                  compute_dtype=args.encoder_dtype,
+                  stage_dtypes=args.stage_dtypes, device="cpu")
+    if args.model == "pretrain_pointnet2_part_seg_msg":
+        kwargs["l2_norm"] = args.l2_norm
+    else:
+        kwargs["extra_layers"] = args.extra_layers
+    model = mod.get_model(**kwargs)
     init_weights(model, torch.Generator().manual_seed(args.seed))
     return model.to(device)
 

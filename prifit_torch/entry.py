@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from prifit_torch.models.pointnet2_part_seg_msg import get_model
+from prifit_torch.nn.atlasnet import ChartDense
 from prifit_torch.train.state import create_train_state
 from prifit_torch.utils.device import resolve_device
 
@@ -32,13 +33,16 @@ SELFSUP_OPTIONS = dict(include_entropy_loss=True, include_intersect_loss=True,
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator
                  ) -> None:
-    """Lecun-normal conv weights (std 1/sqrt(fan_in)) and zero biases,
-    drawn from ``generator`` on the CPU."""
+    """Lecun-normal conv and chart-dense weights (std 1/sqrt(fan_in)) and
+    zero biases, drawn from ``generator`` on the CPU."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv2d)):
+            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv2d,
+                                ChartDense)):
+                fan_in = mod.in_features if isinstance(
+                    mod, ChartDense) else mod.in_channels
                 w = torch.randn(mod.weight.shape, generator=generator)
-                mod.weight.copy_(w / mod.in_channels ** 0.5)
+                mod.weight.copy_(w / fan_in ** 0.5)
                 mod.bias.zero_()
 
 

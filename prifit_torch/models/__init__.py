@@ -3,13 +3,19 @@
 ``get_module`` keeps the JAX package's registry rule
 (``prifit_tpu/models/__init__.py``): a name is one of ``MODEL_NAMES``, and
 any name containing ``"dgcnn"`` means ``dgcnn``; an unknown name raises
-``ValueError``.  Only ``pointnet2_part_seg_msg`` is ported; the other
-registry names raise ``NotImplementedError`` (ROADMAP.md §1 item 4).
+``ValueError``.  ``pointnet2_part_seg_msg`` (with its ``extra_layers``
+and ``reconstruct`` variants) and ``pretrain_pointnet2_part_seg_msg``
+are ported; the other registry names raise ``NotImplementedError``
+(ROADMAP.md §1 item 4).
 """
 
 import importlib
 
-from prifit_torch.models import common, pointnet2_part_seg_msg
+from prifit_torch.models import (
+    common,
+    pointnet2_part_seg_msg,
+    pretrain_pointnet2_part_seg_msg,
+)
 from prifit_torch.models.common import (
     SegOutput,
     nll_loss,
@@ -29,7 +35,7 @@ MODEL_NAMES = (
     "dgcnn",
     "reconstruction",
 )
-PORTED = ("pointnet2_part_seg_msg",)
+PORTED = ("pointnet2_part_seg_msg", "pretrain_pointnet2_part_seg_msg")
 
 
 def get_module(name: str):
@@ -46,5 +52,6 @@ def get_module(name: str):
 
 
 __all__ = ["MODEL_NAMES", "PORTED", "common", "get_module",
-           "pointnet2_part_seg_msg", "SegOutput", "nll_loss",
+           "pointnet2_part_seg_msg", "pretrain_pointnet2_part_seg_msg",
+           "SegOutput", "nll_loss",
            "pairwise_contrastive_loss"]

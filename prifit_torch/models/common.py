@@ -1,8 +1,8 @@
 """Model output contract and encoder dtype selection.
 
 Port of ``prifit_tpu/models/common.py``: ``SegOutput``, ``nll_loss``,
-``pairwise_contrastive_loss``, ``encoder_dtypes``, ``stage_cfg`` and
-``maybe_quant``.
+``pairwise_contrastive_loss``, ``chamfer_loss_dense``,
+``encoder_dtypes``, ``stage_cfg`` and ``maybe_quant``.
 """
 
 from typing import Any, NamedTuple
@@ -70,6 +70,20 @@ def pairwise_contrastive_loss(feat: torch.Tensor, target: torch.Tensor,
         keep = (pos | (uniforms > 1.0 - pos_fraction)) & ~torch.eye(
             pos.shape[1], dtype=torch.bool, device=feat.device)
         return 0.5 * torch.mean(torch.where(keep, cosine, 0.0))
+
+
+def chamfer_loss_dense(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Symmetric dense chamfer of ``x [B, M, 3]`` and ``y [B, N, 3]``: the
+    mean over ``x`` of the squared distance to the nearest point of ``y``
+    plus the same from ``y`` to ``x``, with the distances from the
+    expanded square clamped at 0 (the JAX package's
+    ``chamfer_loss_dense``)."""
+    d = torch.sum(x * x, -1)[..., :, None] \
+        + torch.sum(y * y, -1)[..., None, :] \
+        - 2.0 * torch.matmul(x, y.transpose(-1, -2))
+    d = torch.clamp_min(d, 0.0)
+    return torch.mean(torch.amin(d, dim=-1)) \
+        + torch.mean(torch.amin(d, dim=-2))
 
 
 def encoder_dtypes(compute_dtype: str):

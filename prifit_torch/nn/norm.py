@@ -6,6 +6,11 @@ every axis but the last, torch-convention running update
 ``running = (1 - m) running + m stat`` with the UNBIASED variance tracked,
 and a momentum given per call.  The state_dict names are torch's
 (``weight``, ``bias``, ``running_mean``, ``running_var``).
+
+With ``charts``, one batch norm a chart of a chart-stacked input
+``[charts, rows, F]``: parameters and statistics ``[charts, F]``, each
+chart's statistics over its rows (the JAX package's ``BatchNorm`` under
+``nn.vmap`` over a chart axis, as AtlasNet's decoder runs it).
 """
 
 import torch
@@ -13,29 +18,39 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 charts: int | None = None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
+        self.charts = charts
+        shape = (num_features,) if charts is None else (charts, num_features)
+        self.weight = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
+        self.register_buffer("running_mean", torch.zeros(shape))
+        self.register_buffer("running_var", torch.ones(shape))
 
     def forward(self, x: torch.Tensor, momentum: float = 0.1
                 ) -> torch.Tensor:
         """Batch statistics (and a running update) in training mode,
         running statistics in eval mode; returns ``x.dtype``."""
+        if self.charts is None:
+            dims, rows = tuple(range(x.dim() - 1)), x.numel() // x.shape[-1]
+        else:
+            dims, rows = (1,), x.shape[1]
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            dims = tuple(range(x.dim() - 1))
             x32 = x.float()
             mean = torch.mean(x32, dim=dims)
             mean2 = torch.mean(x32 * x32, dim=dims)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            self.update_running(mean, var, momentum, x.numel() // x.shape[-1])
+            self.update_running(mean, var, momentum, rows)
+        weight, bias = self.weight, self.bias
+        if self.charts is not None:
+            mean, var, weight, bias = (t[:, None] for t in
+                                       (mean, var, weight, bias))
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        return (y * weight + bias).to(x.dtype)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor,

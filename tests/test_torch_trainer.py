@@ -6,9 +6,10 @@ Each run must give finite losses, the JAX trainer's ``metrics.jsonl``
 keys and its checkpoint names: a supervised plus convex self-sup epoch at
 the default encoder dtype and its resume (``epoch``, ``step`` and the
 self-sup ``beta`` restored), a contrastive epoch, a ``--fused_augment``
-epoch and an ``--init_cls`` warm start from a saved checkpoint (with the
-classifier re-init cut to one epoch).  The flags the port cannot run yet
-raise ``NotImplementedError``.
+epoch, an ``--init_cls`` warm start from a saved checkpoint (with the
+classifier re-init cut to one epoch) and epochs of the ``--extra_layers``
+and ``--reconstruct`` variants.  The flags the port cannot run yet raise
+``NotImplementedError``.
 """
 
 import functools
@@ -121,6 +122,20 @@ def test_fused_augment_epoch(roots, tmp_path):
     assert _ckpt(exp, "last_model")["step"] == 2
 
 
+@pytest.mark.parametrize("variant", ["--extra_layers", "--reconstruct"])
+def test_variant_epoch(roots, tmp_path, variant):
+    """A supervised + convex self-sup epoch of a ``pointnet2_part_seg_msg``
+    variant at the default dtype; its checkpoint holds the variant's
+    layers (the embedding tower, or AtlasNet)."""
+    _, exp, _, log = _run(_args(roots, tmp_path, "--selfsup", variant))
+    assert "ss loss" in log
+    sd = _ckpt(exp, "last_model")["model_state_dict"]
+    key = "fp1_embed_conv1.weight" if variant == "--extra_layers" \
+        else "atlasnet.decoder.convs.0.weight"
+    assert key in sd
+    assert sd["beta"].item() == pytest.approx(0.99)
+
+
 def test_init_cls_from_checkpoint(roots, tmp_path, monkeypatch):
     """``--pretrained_model`` with ``--init_cls``: a warm start from a
     saved checkpoint, then the classifier re-init (cut to one epoch
@@ -160,7 +175,7 @@ def test_train_init_class_touches_only_conv2(roots):
     (("--sp_points", "2"), "item 5"),
     (("--model", "pointnet2_part_seg_ssg"), "item 4"),
     (("--model", "dgcnn_part"), "item 4"),
-    (("--extra_layers",), "item 4"),
+    (("--model", "pointnet_part_seg"), "item 4"),
 ])
 def test_unported_flags_raise(roots, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
