@@ -63,6 +63,15 @@ counts set to 0 just before it and read just after:
     from the pretrain's ``best_model`` (the restored weights equal the
     file's before the first step) and ``train_partseg`` runs with
     ``--extra_layers`` and with ``--reconstruct``, 8 iterations each.
+  - the trainer's other part-seg models (``models`` phase):
+    ``train_partseg.main`` at B=24, N=2048 with the recipe's self-sup
+    settings and the default dtype, 8 iterations each, for
+    ``--model pointnet2_part_seg_ssg``, ``dgcnn`` (``--dgcnn_k`` 20),
+    ``pointnet_part_seg`` and ``reconstruction`` (the last two with
+    ``--ss_loss contrastive``), every iteration's launches checked
+    exactly (``model_iteration_counts``), each beside its bare steps and
+    with its peak memory, and ``cli/testing.py`` on each checkpoint on
+    the card against the CPU.
 
 It checks that every kernel was launched by the paths that run it, and
 no other, and that every cotangent the mean-shift backward gets on the
@@ -84,7 +93,11 @@ and for the pretrainer's models one B=2 f32 self-sup step each of the
 pretrain model with ``l2_norm`` and of ``extra_layers``, on 3 blobs with
 more than one cluster a shape (losses, every gradient and the returned
 embedding, the pretrain one of unit rows), a ``reconstruct`` forward's
-``total_loss`` and ``chamfer_loss_dense``.
+``total_loss`` and ``chamfer_loss_dense``; and for the trainer's other
+models one B=2 f32 supervised step each and a DGCNN self-sup step on the
+blobs (losses and every gradient).  The gather is also held bit for bit
+at DGCNN's three tables and the K-max pair at SSG's sa1 region, and
+DGCNN's two kNN graphs are timed.
 It prints:
 
   - the card's name and power limit (nvidia-smi);
@@ -94,11 +107,13 @@ It prints:
   - the pretrainer's ms per iteration beside the bare self-sup step and
     per val batch, with the launches of each;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the thirteen paths (and their sum; ``trainer`` is the whole first
+    the seventeen paths (and their sum; ``trainer`` is the whole first
     trainer run with its eval, ``pretrainer`` and ``pretrain_val`` the
     pretrain run's iterations and val batches, ``extra_layers`` and
-    ``reconstruct`` those trainer runs) and per trainer iteration, per
-    pretrain iteration and per pretrain val batch, its error against the
+    ``reconstruct`` those trainer runs, ``model_<name>`` the ``models``
+    phase's runs) and per trainer iteration, per pretrain iteration, per
+    pretrain val batch and per iteration of each of the ``models``
+    phase's runs, its error against the
     plain version, and the times of the calls one forward or one step
     makes (kernel, plain version, library call) beside the least time the
     card could take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
@@ -332,6 +347,49 @@ def check_gather():
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound=bound_ms(sum(call_bytes), 0),
                 device_ms=sum(dev), int32_ms=ms32)
+
+
+def check_gather_dgcnn():
+    """The gather at DGCNN's three tables of one forward at B=24, N=2048
+    and ``--dgcnn_k`` 20 (edge convolution 1 gathers the raw 3-wide
+    cloud, 2 its 64-wide projection, 3 the raw 64-wide features, each by
+    the ``[B, N, 20]`` int64 kNN graph), bit-equal to the plain version;
+    times the three calls beside the plain version and ``torch.gather``.
+    Returns ``(ms, plain_ms, library_ms, bound_ms)`` of the three."""
+    from prifit_torch.kernels import gather
+    gen = torch.Generator().manual_seed(16)
+    calls = [(torch.randn((B, N, c), generator=gen).cuda(),
+              torch.randint(0, N, (B, N, 20), generator=gen).cuda())
+             for c in (3, 64, 64)]
+    for t, i in calls:
+        if not torch.equal(gather.gather_rows(t, i).view(torch.uint8),
+                           gather.gather_plain(t, i).view(torch.uint8)):
+            raise AssertionError(f"gather differs at DGCNN's table "
+                                 f"{tuple(t.shape)}")
+    lib_idx = [(t, i.reshape(B, -1, 1).expand(-1, -1, t.shape[-1]))
+               for t, i in calls]
+    byt = sum(nbytes(t, i) + i.numel() * t.shape[-1] * t.element_size()
+              for t, i in calls)
+    return (cuda_ms(lambda: [gather.gather_rows(t, i) for t, i in calls]),
+            cuda_ms(lambda: [gather.gather_plain(t, i) for t, i in calls]),
+            cuda_ms(lambda: [torch.gather(t, 1, i) for t, i in lib_idx]),
+            bound_ms(byt, 0)[0])
+
+
+def time_dgcnn_knn():
+    """DGCNN's two kNN graphs of one forward at B=24, N=2048, k=20 (on
+    the 3-wide cloud and on the 64-wide features): ms of each whole
+    graph (the ``[B, N, N]`` distances and the port's stable full sort)
+    and of its distances alone."""
+    from prifit_torch.ops.pairwise import knn_with_dilation, \
+        square_distance
+    gen = torch.Generator().manual_seed(17)
+    out = {}
+    for c in (3, 64):
+        x = torch.randn((B, N, c), generator=gen).cuda()
+        out[c] = (cuda_ms(lambda: knn_with_dilation(x, 20, 20), reps=5),
+                  cuda_ms(lambda: square_distance(x, x), reps=5))
+    return out
 
 
 def bandwidth_err(X, ks):
@@ -710,6 +768,11 @@ def check_ragged():
 # K = 64/128) and sa3's group-all chain (1 centre, K = 128 points)
 MAX_BWD_SHAPES = [(B * 512, 32, 64), (B * 512, 64, 128), (B * 512, 128, 128),
                   (B * 128, 64, 256), (B * 128, 128, 256), (B, 128, 1024)]
+# the three K-max regions of one SSG step: sa1 (512 centres, K = 32,
+# F = 128), sa2 (128 centres, K = 64, F = 256) and sa3's group-all chain;
+# the last two have MSG shapes
+SSG_MAX_BWD_SHAPES = [(B * 512, 32, 128), (B * 128, 64, 256),
+                      (B, 128, 1024)]
 KEY_255, KEY_0 = (0x1234ABCD, 0x9E3779B9), (0xCAFEBABE, 12345)
 # the kernels that only a train step's backward runs; the last three only
 # at the mixed-precision dtypes
@@ -764,15 +827,17 @@ def check_max_bwd():
     their plain versions at the six K-max regions' shapes, with
     stochastic rounding on (``mxsr``) and off (``mx``): cnt, gsm and dz
     bit-equal (the kernels round each product and difference as the
-    plain version does, and take the same hash bits).  Times the six
-    calls of one ``mxsr`` step of each; no single PyTorch call computes
-    either function."""
+    plain version does, and take the same hash bits); also at SSG's sa1
+    region (``SSG_MAX_BWD_SHAPES``).  Times the six calls of one MSG
+    ``mxsr`` step of each; no single PyTorch call computes either
+    function."""
     from prifit_torch.kernels import max_bwd
     gen = torch.Generator(device="cuda").manual_seed(7)
     timed = {}
     for sr in (True, False):
         k255, k0 = (KEY_255, KEY_0) if sr else (None, None)
-        for shape in MAX_BWD_SHAPES:
+        for shape in MAX_BWD_SHAPES + [
+                sh for sh in SSG_MAX_BWD_SHAPES if sh not in MAX_BWD_SHAPES]:
             x = max_bwd_inputs(gen, *shape, sr)
             args = (x["z"], x["zsel"], x["g"], x["out_bf"], k255)
             cnt, gsm = max_bwd.cnt_gsm(*args)
@@ -791,7 +856,7 @@ def check_max_bwd():
                     f"max_bwd_dz differs from its plain version at {shape}, "
                     f"sr={sr}: {int((_bits(dz) != _bits(dz_p)).sum())} of "
                     f"{dz.numel()} elements")
-            if sr:
+            if sr and shape in MAX_BWD_SHAPES:
                 timed[shape] = (args, dargs, cnt, gsm, dz)
             del x, cnt_p, gsm_p, dz_p
     calls = list(timed.values())
@@ -1179,8 +1244,8 @@ def _trainer_run(train_partseg, args, kernels):
     after a synchronize) the wall clock and the counts, and the time the
     iteration waited for its two prefetched batches.  Returns the
     metrics, the iteration walls and waits but the first iteration's
-    (which starts the prefetch streams), the counts of the whole run and
-    of its last iteration."""
+    (which starts the prefetch streams), the counts of the whole run, of
+    its last iteration and of each iteration."""
     marks, waits = [], []
 
     def on_iteration(epoch, i):
@@ -1199,13 +1264,14 @@ def _trainer_run(train_partseg, args, kernels):
         train_partseg.prefetch_to_device = prefetch
     counts = kernels.launch_counts()
     walls = [(b[0] - a[0], b[2] - a[2]) for a, b in zip(marks, marks[1:])]
-    last = {k: marks[-1][1][k] - marks[-2][1][k] for k in counts}
+    per_iter = [{k: b[1][k] - a[1].get(k, 0) for k in counts}
+                for a, b in zip([(0, {}, 0)] + marks, marks)]
     for k, v in metrics.items():
         if not np.isfinite(v) and k != "best_chamfer_loss":
             raise AssertionError(f"trainer metric {k} = {v}")
     if not 0.0 <= metrics["instance_avg_iou"] <= 1.0:
         raise AssertionError(f"trainer metrics {metrics}")
-    return metrics, walls, counts, last
+    return metrics, walls, counts, per_iter[-1], per_iter
 
 
 def _last_checkpoint(exp):
@@ -1338,8 +1404,8 @@ def trainer_phase(kernels, bare):
 
         out = {"write_s": write_s}
         args = args_for("main", "--epoch_iters", str(TRAINER_ITERS))
-        metrics, walls, counts, last = _trainer_run(train_partseg, args,
-                                                    kernels)
+        metrics, walls, counts, last, _ = _trainer_run(
+            train_partseg, args, kernels)
         missing = [k for k, v in counts.items() if v == 0]
         if missing:
             raise AssertionError(f"kernels never launched by the trainer: "
@@ -1366,7 +1432,7 @@ def trainer_phase(kernels, bare):
 
         # resume from last_model for one more, shorter epoch
         args.epoch, args.epoch_iters = 2, RESUME_ITERS
-        _, rwalls, _, _ = _trainer_run(train_partseg, args, kernels)
+        _, rwalls, _, _, _ = _trainer_run(train_partseg, args, kernels)
         second = _last_checkpoint(exp)
         beta2 = second["model_state_dict"]["beta"].item()
         with open(os.path.join(exp, "train.log")) as f:
@@ -1383,8 +1449,8 @@ def trainer_phase(kernels, bare):
         # the variants
         for name, (extra, iters) in TRAINER_VARIANTS.items():
             vargs = args_for(name, "--epoch_iters", str(iters), *extra)
-            _, vwalls, vcounts, vlast = _trainer_run(train_partseg, vargs,
-                                                     kernels)
+            _, vwalls, vcounts, vlast, _ = _trainer_run(
+                train_partseg, vargs, kernels)
             clustering = [vlast[k] for k in CLUSTERING]
             if (name == "contrastive") == any(clustering) or not vlast["fps"]:
                 raise AssertionError(f"{name} iteration launched {vlast}")
@@ -1612,8 +1678,8 @@ def pretrainer_phase(kernels, bare):
         train_partseg.restore_params_only = checked_restore
         try:
             fargs = args_for("finetune", "--pretrained_model", best)
-            _, fwalls, fcounts, flast = _trainer_run(train_partseg, fargs,
-                                                     kernels)
+            _, fwalls, fcounts, flast, _ = _trainer_run(
+                train_partseg, fargs, kernels)
         finally:
             train_partseg.restore_params_only = restore
         if not restored or restored["from_file"] != restored["n"]:
@@ -1623,8 +1689,8 @@ def pretrainer_phase(kernels, bare):
 
         for name in ("extra_layers", "reconstruct"):
             vargs = args_for(name, f"--{name}")
-            _, vwalls, vcounts, vlast = _trainer_run(train_partseg, vargs,
-                                                     kernels)
+            _, vwalls, vcounts, vlast, _ = _trainer_run(
+                train_partseg, vargs, kernels)
             missing = [k for k, v in vlast.items() if v == 0
                        and not (name == "extra_layers" and k == "sr_bf16")]
             if missing or vlast["fps"] != 4 \
@@ -1635,6 +1701,259 @@ def pretrainer_phase(kernels, bare):
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the trainer's other part-seg models: --model -> its flags beside
+# TRAINER_FLAGS (the recipe's self-sup settings, --dgcnn_k at its default
+# 20), and the kernels one iteration (a supervised step and a self-sup
+# step) launches beside the clustering's
+MODEL_RUNS = {
+    "pointnet2_part_seg_ssg": ([], dict(fps=4, gather=10, max_bwd_cnt_gsm=3,
+                                        max_bwd_dz=3, sr_bf16=30)),
+    "dgcnn": ([], dict(gather=6)),
+    "pointnet_part_seg": (["--ss_loss", "contrastive"], {}),
+    "reconstruction": (["--ss_loss", "contrastive"], dict(fps=4, gather=20)),
+}
+MODEL_ITERS = 8
+
+
+def model_iteration_counts(name, r):
+    """The launches of one trainer iteration of ``--model name``, where
+    the convex loss (``dgcnn`` only) ran ``r`` bandwidth candidates:
+
+    - SSG at ``mxsr``: FPS twice and the gather 5 times a forward (sa1's
+      xyz and its 3-wide features, sa2's projection, fp2, fp1), and in
+      the supervised step's backward the K-max pair once per K-max
+      region (sa1, sa2, sa3) and 30 rounding casts; its self-sup step has
+      a zero loss and no backward;
+    - DGCNN: the gather once per edge convolution (3 a forward), and in
+      the self-sup step the clustering, as the MSG step's;
+    - PointNet: no kernel;
+    - reconstruction (f32): FPS twice and the gather 10 times a forward,
+      as the MSG encoder's."""
+    from prifit_torch import kernels
+    c = dict.fromkeys(kernels.KERNELS, 0)
+    c.update(MODEL_RUNS[name][1])
+    if name == "dgcnn":
+        c.update(bandwidth=r, mean_shift=10 * r, mean_shift_bwd=10 * r,
+                 nms=3 * r)
+    return c
+
+
+def models_phase(kernels):
+    """The trainer's other part-seg models through ``train_partseg.main``
+    on the card at B=24, N=2048 and full width, the default dtype, with
+    the recipe's self-sup settings (``MODEL_RUNS``), ``MODEL_ITERS``
+    iterations each, on a small synthetic tree (``FINETUNE_SHAPES``
+    shapes a category; the ACD tree of 48 shapes).  Every iteration's
+    launches must equal :func:`model_iteration_counts` (DGCNN's with 1
+    or 2 bandwidth candidates).  For each model: ms an iteration, its
+    peak memory, the bare supervised and self-sup steps of that model on
+    the trainer's own batches (:func:`trainer_breakdown`, which also
+    checks the ``last_model`` restore), and ``cli/testing.py`` on its
+    ``best_model`` on the card against the CPU (instance-avg mIoU within
+    1e-2)."""
+    import shutil
+    import tempfile
+
+    from prifit_torch.cli import testing, train_partseg
+    from prifit_torch.cli.args_parser import parse_args
+
+    os.makedirs(os.path.join(ROOT, "log"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_",
+                           dir=os.path.join(ROOT, "log"))
+    try:
+        sn = write_shapenet_tree(os.path.join(tmp, "shapenet"),
+                                 FINETUNE_SHAPES)
+        acd = write_acd_tree(os.path.join(tmp, "acd"))
+        out = {}
+        for name, (extra, _) in MODEL_RUNS.items():
+            args = parse_args(TRAINER_FLAGS + [
+                "--model", name, "--data_root", sn, "--ss_path", acd,
+                "--experiment_root", os.path.join(tmp, name), "--epoch", "1",
+                "--epoch_iters", str(MODEL_ITERS), *extra])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics, walls, counts, _, per_iter = _trainer_run(
+                train_partseg, args, kernels)
+            peak = torch.cuda.max_memory_allocated()
+            retries = []
+            for i, c in enumerate(per_iter):
+                for r in (1, 2):
+                    if c == model_iteration_counts(name, r):
+                        retries.append(r - 1)
+                        break
+                else:
+                    raise AssertionError(
+                        f"{name} iteration {i} launched {c}, not "
+                        f"{model_iteration_counts(name, 1)}")
+            exp = os.path.join(args.experiment_root,
+                               train_partseg.experiment_name(args))
+            host, bare = trainer_breakdown(train_partseg, args, exp)
+            targs = parse_args(TRAINER_FLAGS + [
+                "--model", name, "--data_root", sn, *extra,
+                "--pretrained_model",
+                os.path.join(exp, "checkpoints", "best_model")])
+            res = {side: testing.main(targs, device=dev, log=lambda *_: None)
+                   for side, dev in (("card", "cuda"), ("cpu", "cpu"))}
+            d_iou = abs(res["card"]["instance_avg_iou"]
+                        - res["cpu"]["instance_avg_iou"])
+            if not d_iou <= 1e-2:
+                raise AssertionError(f"{name} eval card vs cpu: {res}")
+            out[name] = dict(metrics=metrics, walls=[w for w, _ in walls],
+                             counts=counts, last=per_iter[-1], peak=peak,
+                             retries=retries, host=host, bare=bare,
+                             card_vs_cpu=res)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def model_state(name, dev):
+    """An f32 train state of ``--model name`` on ``dev``, built as the
+    trainer builds it (``build_model``, seed 0, ``--dgcnn_k`` 20), with
+    dropout off."""
+    from prifit_torch.cli import train_partseg
+    from prifit_torch.cli.args_parser import parse_args
+    from prifit_torch.models import get_module
+    from prifit_torch.train.state import create_train_state
+    args = parse_args(["--model", name, "--encoder_dtype", "f32",
+                       "--seed", "0"])
+    mod = get_module(name)
+    model = train_partseg.build_model(args, mod, dev)
+    if hasattr(model, "dropout_rate"):
+        model.dropout_rate = 0.0
+    return create_train_state(model.train()), mod
+
+
+def _model_zero_grad_bias(name):
+    """Biases with an analytically zero gradient in the trainer's other
+    models: those of :func:`_zero_grad_bias`, PointNet's dense biases a
+    batch norm follows, and its ``bn5`` bias, whose shift reaches the
+    head as one constant on every row ``bns1`` normalizes."""
+    import re
+    return _zero_grad_bias(name) or name == "bn5.bias" or (
+        re.fullmatch(r"((f?stn)\.)?(conv\w+|fc[12])\.bias", name)
+        is not None and name != "convs4.bias")
+
+
+class dgcnn_graphs:
+    """While active, DGCNN's kNN graphs are recorded (``graphs`` None at
+    entry: each graph the port computes is kept, on the CPU) or replayed
+    (``graphs`` a list: handed out in call order, on the caller's
+    device)."""
+
+    def __init__(self, graphs=None):
+        self.graphs, self.record = ([], True) if graphs is None \
+            else (list(graphs), False)
+
+    def __enter__(self):
+        import prifit_torch.nn.dgcnn as dg
+        self.dg, self.orig = dg, {n: getattr(dg, n) for n in (
+            "knn_with_dilation", "knn_points_normals")}
+        it = iter(self.graphs)
+        for name, fn in self.orig.items():
+            def wrap(x, *a, fn=fn):
+                if not self.record:
+                    return next(it).to(x.device)
+                idx = fn(x, *a)
+                self.graphs.append(idx.cpu())
+                return idx
+            setattr(dg, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dg, name, fn)
+
+
+def models_card_vs_cpu(entry):
+    """Card against CPU at B=2, N=2048, f32, from the same seeded weights
+    (dropout off, FPS from index 0): one supervised step of each of the
+    trainer's other models (the loss within 1e-5 relative, every
+    gradient within 5e-2 of the CPU gradient's norm, the limits of
+    :func:`train_card_vs_cpu`), and a DGCNN self-sup step with the convex
+    loss on the blob cloud (the recipe's clustering at quantile 0.2, see
+    below; more than 1 cluster a shape asserted, the eigenvector signs
+    aligned): ss_loss within 1e-4 relative and every gradient within
+    5e-2.  A kNN graph is discrete,
+    and cuBLAS and the CPU
+    round the distances differently, so a near-tie may pick another
+    neighbour: the supervised steps compute their own graphs on each
+    side, the self-sup step runs on the CPU's graphs on both sides, and
+    the card's own graphs give ``own_ss_loss``, with the share of its
+    graph entries that differ (``graph_diff``), for the record."""
+    from prifit_torch.train.steps import make_selfsup_step, \
+        make_supervised_step
+    ts = entry.TRAIN_SETTINGS
+    # DGCNN's random-weight embedding is nearly constant within a blob,
+    # so (a) after one mean-shift step, as the MSG variants take, the NMS
+    # representative is a near-tie of member counts, and a 2^-20 change of
+    # the input moves the loss by 0.3-3% (after 10 steps the modes
+    # converge: 3e-6); (b) at the recipe's quantile 0.05 the bandwidth is
+    # a chordal distance of about 0.03, whose square the bisection grid
+    # (2^-22) and the 3xTF32 dot products resolve to about 3e-4, and the
+    # card's loss was 1.35e-4 off the CPU's.  At 0.2 a 3e-4 change of the
+    # bandwidth moves the loss by under 1e-6 (on the CPU).
+    kwargs = dict(entry.BENCH_KWARGS, quantile=0.2)
+    _, points, cls, target = entry.train_flagship(2, N, device="cpu",
+                                                  compute_dtype="f32")
+    blobs = blob_points()
+    with torch.no_grad():
+        nc = model_state("dgcnn", "cpu")[0].model(
+            blobs, cls, chamfer_points=blobs, include_convex_loss=True,
+            **kwargs).convex.clusters.num_clusters
+    if not bool((nc > 1).all()):
+        raise AssertionError(f"dgcnn on the blobs: {nc} clusters")
+
+    def selfsup(dev, graphs=None):
+        state, _ = model_state("dgcnn", dev)
+        b = blobs.to(dev)
+        with eigh_signs_from_card(), dgcnn_graphs(graphs) as rec:
+            _, m = make_selfsup_step(**kwargs)(
+                state, b, cls.to(dev), b, ts["lr"], ts["bn_momentum"],
+                ts["lmbda"])
+        return (m["ss_loss"].item(),
+                {n: p.grad.float().cpu()
+                 for n, p in state.model.named_parameters()}), rec.graphs
+
+    res = {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        r = res[side] = {}
+        for name in MODEL_RUNS:
+            state, mod = model_state(name, dev)
+            _, m = make_supervised_step(mod.get_loss)(
+                state, points.to(dev), cls.to(dev), target.to(dev),
+                ts["lr"], ts["bn_momentum"])
+            r[name] = (m["loss"].item(),
+                       {n: p.grad.float().cpu()
+                        for n, p in state.model.named_parameters()})
+    res["cpu"]["dgcnn_selfsup"], graphs = selfsup("cpu")
+    res["card"]["dgcnn_selfsup"], _ = selfsup("cuda", graphs)
+    (own_loss, _), own = selfsup("cuda")
+    out = {"clusters": nc.tolist(), "own_ss_loss": own_loss,
+           "graph_diff": [float((a != b).float().mean())
+                          for a, b in zip(own, graphs)]}
+    for what, (lg, gg) in res["card"].items():
+        lc, gc = res["cpu"][what]
+        tol = 1e-4 if what == "dgcnn_selfsup" else 1e-5
+        if not abs(lg - lc) <= tol * abs(lc):
+            raise AssertionError(f"{what} loss card {lg} cpu {lc}")
+        err = 0.0
+        for n, rc in gc.items():
+            if _model_zero_grad_bias(n):
+                continue
+            if not bool(rc.any()):
+                if bool(gg[n].any()):
+                    raise AssertionError(f"{what}: {n} has a gradient where "
+                                         f"the CPU has none")
+                continue
+            err = max(err, float((gg[n] - rc).norm() / rc.norm()))
+        if not err <= 5e-2:
+            raise AssertionError(f"{what} gradients card vs cpu: largest "
+                                 f"error {err} of the norm")
+        out[what] = dict(loss=(lg, lc), grad_err=err)
+    return out
 
 
 def variant_state(dev, pretrain=False, xyz_gain=None, **kw):
@@ -2385,6 +2704,29 @@ def log_pretrainer(pre, smi):
             f"[{smi}]; launches an iteration {v['last']}")
 
 
+def log_models(models, smi):
+    for name, r in models.items():
+        bare = r["bare"]
+        steps = bare["supervised"] + bare["selfsup"]
+        it = sorted(r["walls"])[len(r["walls"]) // 2]
+        c = r["card_vs_cpu"]
+        log(f"models: train_partseg "
+            f"{' '.join(['--model', name] + MODEL_RUNS[name][0])} B={B} N={N} "
+            f"({MODEL_ITERS} iterations): {it * 1e3:.1f} ms an iteration "
+            f"({_spread(r['walls'])}, the first left out), bare steps "
+            f"{bare['supervised'] * 1e3:.1f} + {bare['selfsup'] * 1e3:.1f} = "
+            f"{steps * 1e3:.1f} ms (this call's medians), gap "
+            f"{(it - steps) * 1e3:+.1f} ms; host pipeline alone "
+            f"{r['host'] * 1e3:.1f} ms; peak memory "
+            f"{r['peak'] / 2**30:.2f} GiB [{smi}]; launches an iteration "
+            f"{r['last']} (second bandwidth candidate in "
+            f"{sum(r['retries'])} of {len(r['retries'])}); final eval "
+            f"instance-avg mIoU {r['metrics']['instance_avg_iou']:.6f}; eval "
+            f"CLI card vs cpu instance-avg mIoU "
+            f"{c['card']['instance_avg_iou']:.6f} / "
+            f"{c['cpu']['instance_avg_iou']:.6f}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2407,6 +2749,14 @@ def main():
     results = {}
     results["fps"] = check_fps()
     results["gather"] = check_gather()
+    dg = check_gather_dgcnn()
+    log(f"  gather, DGCNN's three tables (B={B}, N={N}, k=20), bit-equal: "
+        f"kernel_ms {dg[0]:.4f} plain_ms {dg[1]:.4f} library_ms "
+        f"{dg[2]:.4f} bound_ms {dg[3]:.4f}")
+    for c, (knn_ms, dist_ms) in time_dgcnn_knn().items():
+        log(f"  DGCNN kNN graph B={B} N={N} C={c} k=20: {knn_ms:.3f} ms "
+            f"(the distances alone {dist_ms:.3f} ms, the rest the stable "
+            f"sort) [{smi}]")
     X = unit_rows(torch.Generator().manual_seed(3), (B, N, 128))
     results["bandwidth"], kth = check_bandwidth(X)
     bw = torch.sqrt(torch.clamp_min(kth[:, 0], 1e-6)).mean(-1)
@@ -2478,6 +2828,8 @@ def main():
     log_trainer(tr, smi)
     pre = pretrainer_phase(kernels, bare)
     log_pretrainer(pre, smi)
+    models = models_phase(kernels)
+    log_models(models, smi)
     tc = train_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
         f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
@@ -2525,6 +2877,16 @@ def main():
         f"({g['reconstruct'][1]} AtlasNet points); chamfer_loss_dense "
         f"{g['chamfer']:.7f} / {c['chamfer']:.7f}")
 
+    omc = models_card_vs_cpu(entry)
+    log(f"card vs cpu B=2 f32, the trainer's other models (DGCNN self-sup "
+        f"on blobs, clusters {omc.pop('clusters')}, on the CPU's kNN "
+        f"graphs; on the card's own graphs ss_loss "
+        f"{omc.pop('own_ss_loss'):.7f}, graph entries that differ "
+        f"{omc.pop('graph_diff')}): " + "; ".join(
+            f"{what} loss {r['loss'][0]:.7f} / {r['loss'][1]:.7f}, largest "
+            f"gradient error {r['grad_err']:.4g} of the norm"
+            for what, r in omc.items()))
+
     paths = {"eval_forward": counts}
     for dt, tag in (("auto", "mxsr"), ("f32", "f32")):
         paths[f"supervised_step_{tag}"] = train[dt]["supervised"]["counts"]
@@ -2535,6 +2897,7 @@ def main():
     paths["pretrain_val"] = _sum_counts(pre["pretrain"]["val_counts"])
     paths["extra_layers"] = pre["extra_layers"]["counts"]
     paths["reconstruct"] = pre["reconstruct"]["counts"]
+    paths.update({f"model_{name}": r["counts"] for name, r in models.items()})
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]
@@ -2548,6 +2911,8 @@ def main():
                 name],
             launches_per_pretrain_val_batch=pre["pretrain"]["val_counts"][-1][
                 name],
+            launches_per_model_iteration={
+                m: r["last"][name] for m, r in models.items()},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],

@@ -4,9 +4,10 @@
   python -m prifit_torch.cli.testing --pretrained_model <ckpt> \\
       --model pointnet2_part_seg_msg --data_root <shapenet>
 
-``--pretrained_model`` is a checkpoint the port's trainer wrote
-(``checkpoints/best_model``, ...) or a reference torch ``.pth``.  Runs on
-CUDA unless ``main(args, device="cpu")`` is called.
+``--model`` takes every model the trainer builds, through the trainer's
+own ``build_model``.  ``--pretrained_model`` is a checkpoint the port's
+trainer wrote (``checkpoints/best_model``, ...) or a reference torch
+``.pth``.  Runs on CUDA unless ``main(args, device="cpu")`` is called.
 """
 
 import os.path as osp

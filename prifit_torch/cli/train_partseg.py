@@ -21,11 +21,18 @@ the fused augmentation); it is seeded from ``--seed`` and the epoch at
 the start of each epoch, so a resumed run draws what an uninterrupted
 one would.
 
-Not ported yet, and refused with ``NotImplementedError``: ``--sp_points``
-above 1 (ROADMAP.md §1 item 5) and any ``--model`` but
+``--model`` takes the part-seg models the JAX trainer builds:
 ``pointnet2_part_seg_msg`` (with its ``--extra_layers`` and
-``--reconstruct`` variants) and ``pretrain_pointnet2_part_seg_msg`` (§1
-item 4).  ``--pretrained_model`` takes the pretrainer's checkpoints
+``--reconstruct`` variants), ``pretrain_pointnet2_part_seg_msg``,
+``pointnet2_part_seg_ssg``, ``pointnet_part_seg``, ``dgcnn`` (any name
+containing it, with ``--dgcnn_k`` neighbours) and ``reconstruction``.
+Under ``--selfsup`` a model with no convex loss (SSG, PointNet,
+reconstruction) takes the self-sup step with a zero loss, as the JAX
+trainer does: Adam's weight decay and the batch-norm statistics still
+move.  Not ported yet, and refused with ``NotImplementedError``:
+``--sp_points`` above 1 (ROADMAP.md §1 item 5) and the classification
+and semantic-segmentation models (§1 item 4).  ``--pretrained_model``
+takes the pretrainer's checkpoints
 (:mod:`prifit_torch.cli.pretrain_partseg`) as well as this trainer's.
 
 Usage (canonical recipe, README.md:60-63):
@@ -126,22 +133,35 @@ def check_supported(args) -> None:
 
 def build_model(args, mod, device):
     """The model of ``args`` (reference ``train_partseg_shapenet.py:
-    219-232``, the JAX trainer's ``build_model``) on ``device``, with
-    lecun-normal weights from ``--seed``
+    219-232``, the JAX trainer's ``build_model`` with its per-name
+    arguments) on ``device``, with lecun-normal weights from ``--seed``
     (:func:`prifit_torch.entry.init_weights`) and fresh batch-norm
-    statistics: ``--reconstruct`` goes to either model, ``--l2_norm`` to
+    statistics.  ``dgcnn`` takes ``--dgcnn_k`` neighbours, SSG the
+    encoder dtype, PointNet and reconstruction no dtype (f32);
+    ``--reconstruct`` goes to either MSG model, ``--l2_norm`` to
     ``pretrain_pointnet2_part_seg_msg`` only and ``--extra_layers`` to
     ``pointnet2_part_seg_msg`` only (the JAX part-seg model takes an
     ``l2_norm`` and never reads it)."""
-    kwargs = dict(num_parts=args.num_parts, normal_channel=args.normal,
-                  reconstruct=args.reconstruct,
-                  compute_dtype=args.encoder_dtype,
-                  stage_dtypes=args.stage_dtypes, device="cpu")
-    if args.model == "pretrain_pointnet2_part_seg_msg":
-        kwargs["l2_norm"] = args.l2_norm
+    common = dict(normal_channel=args.normal, device="cpu")
+    if "dgcnn" in args.model:
+        model = mod.get_model(num_parts=args.num_parts, nn_nb=args.dgcnn_k,
+                              **common)
+    elif args.model == "pointnet_part_seg":
+        model = mod.get_model(part_num=args.num_parts, **common)
+    elif args.model == "pointnet2_part_seg_ssg":
+        model = mod.get_model(num_classes=args.num_parts,
+                              compute_dtype=args.encoder_dtype, **common)
+    elif args.model == "reconstruction":
+        model = mod.get_model(num_classes=args.num_parts, **common)
     else:
-        kwargs["extra_layers"] = args.extra_layers
-    model = mod.get_model(**kwargs)
+        kwargs = dict(num_parts=args.num_parts, reconstruct=args.reconstruct,
+                      compute_dtype=args.encoder_dtype,
+                      stage_dtypes=args.stage_dtypes, **common)
+        if args.model == "pretrain_pointnet2_part_seg_msg":
+            kwargs["l2_norm"] = args.l2_norm
+        else:
+            kwargs["extra_layers"] = args.extra_layers
+        model = mod.get_model(**kwargs)
     init_weights(model, torch.Generator().manual_seed(args.seed))
     return model.to(device)
 
@@ -162,37 +182,51 @@ def np_onehot(cls, num_classes: int) -> np.ndarray:
 
 def train_init_class(state, model, mod, loader, args, log,
                      num_epochs: int = 500, device=None):
-    """Logistic-regression re-init of the final classifier layer.
+    """Logistic-regression re-init of the layer named ``conv2``.
 
     Reference ``train_init_class`` (``train:56-99``): ``num_epochs``
-    epochs of SGD(lr=0.1, momentum=0.5) on ``conv2`` only, with the model
-    in eval mode (batch-norm statistics frozen, no dropout).  The layers
-    before ``conv2`` are frozen, so their features are computed without
-    gradients.
+    epochs of SGD(lr=0.1, momentum=0.5) on ``conv2`` only, through the
+    whole forward in eval mode (batch-norm statistics frozen, no
+    dropout), as the JAX trainer's.  In the PointNet++ models ``conv2``
+    is the classifier; in ``pointnet_part_seg`` it is the encoder's
+    second layer, and the layers after it carry its gradient.  Only
+    ``conv2``'s parameters take gradients.  A model with no ``conv2``
+    (``dgcnn``) raises ``ValueError``: the JAX trainer fails there too.
     """
     device = resolve_device(device)
-    conv2 = model.conv2
+    conv2 = getattr(model, "conv2", None)
+    if conv2 is None:
+        raise ValueError(f"--init_cls re-initializes the layer named conv2, "
+                         f"and {args.model} has none")
     opt = torch.optim.SGD(conv2.parameters(), lr=0.1, momentum=0.5)
+    trained = {id(p) for p in conv2.parameters()}
+    frozen = [p for p in model.parameters()
+              if id(p) not in trained and p.requires_grad]
     model.eval()
     rng = np.random.default_rng(args.seed)
-    for epoch in range(num_epochs):
-        losses = []
-        for points, cls, target in loader:
-            pts = torch.as_tensor(augment_sup(points, rng), device=device)
-            onehot = torch.as_tensor(np_onehot(cls, args.num_classes),
-                                     device=device)
-            with torch.no_grad():
-                feat = model(pts, onehot).feat
-            logp = torch.log_softmax(model._head(feat, conv2), dim=-1)
-            loss = mod.get_loss(logp, torch.as_tensor(
-                target.astype(np.int64), device=device))
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            losses.append(loss.item())
-        if epoch % 100 == 0 or epoch == num_epochs - 1:
-            log(f"Init Classifier epoch {epoch + 1}/{num_epochs} "
-                f"loss {np.mean(losses):.4f}")
+    for p in frozen:
+        p.requires_grad_(False)
+    try:
+        for epoch in range(num_epochs):
+            losses = []
+            for points, cls, target in loader:
+                pts = torch.as_tensor(augment_sup(points, rng),
+                                      device=device)
+                onehot = torch.as_tensor(np_onehot(cls, args.num_classes),
+                                         device=device)
+                out = model(pts, onehot)
+                loss = mod.get_loss(out.seg_logits, torch.as_tensor(
+                    target.astype(np.int64), device=device), out.trans_feat)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                losses.append(loss.item())
+            if epoch % 100 == 0 or epoch == num_epochs - 1:
+                log(f"Init Classifier epoch {epoch + 1}/{num_epochs} "
+                    f"loss {np.mean(losses):.4f}")
+    finally:
+        for p in frozen:
+            p.requires_grad_(True)
     return state
 
 

@@ -22,14 +22,34 @@ variables have the same names.  Layout facts it encodes:
 - AtlasNet's ``atlasnet/VmapPointGenCon_0/Dense_{j}`` kernels are
   ``[charts, in, out]`` and map untransposed to ``atlasnet.decoder.convs
   .{j}``, its ``BatchNorm_{j}`` to ``atlasnet.decoder.bns.{j}``.
+
+It serves the trainer's other models too, read from the tree as well:
+
+- ``pointnet2_part_seg_ssg``: one grouped first layer a SA layer
+  (``sa{1,2}/GroupedFirstLayer_0``) whose reference conv weight has the
+  xyz FIRST, ``[F, 3 + d_in]``, then ``PointMLP_0``'s rows (the SA
+  layers' ``mlp_convs.{j}``/``mlp_bns.{j}``);
+- ``pointnet_part_seg``: ``stn``/``fstn`` hold ``Dense_0..2`` (the 1x1
+  convs ``conv1..3``), ``Dense_3..5`` (``nn.Linear`` ``fc1..3``, so
+  ``fstn/Dense_5`` is ``[256, 16384]``) and ``BatchNorm_0..4``
+  (``bn1..5``); then ``conv1..5``/``bn1..5`` and ``convs1..4``/
+  ``bns1..3``;
+- ``dgcnn``: flax auto-names under ``dgcnn/``.  ``DGCNNEncoderGn_0/
+  _EdgeConv_{i}/kernel`` is ``[2C, F]`` (``W_d`` its first C rows) and
+  becomes the bias-free Conv2d ``encoder.edge_convs.{i}.conv``; each
+  ``GroupNorm_*`` has ``scale`` and ``bias`` and no statistics;
+  ``Dense_0..3`` are ``convs.0..2`` and ``seg``, and ``Dense_4``, which
+  has no bias, is ``embed``;
+- ``reconstruction``: the MSG rows without ``extra_conv_emb`` (and no
+  ``beta``), with AtlasNet.
 """
 
 import numpy as np
 import torch
 
 SA_CFG = (
-    ("sa1", 3, [[32, 32, 64], [64, 64, 128], [64, 96, 128]]),
-    ("sa2", 320, [[128, 128, 256], [128, 196, 256]]),
+    ("sa1", [[32, 32, 64], [64, 64, 128], [64, 96, 128]]),
+    ("sa2", [[128, 128, 256], [128, 196, 256]]),
 )
 FP_NAMES = ("fp3", "fp2", "fp1")
 EXTRA_DENSES = ("fp1_conv1", "fp1_conv1_bn1", "fp1_conv2", "fp1_conv2_bn2",
@@ -39,26 +59,24 @@ EXTRA_BNS = ("conv1_embed_bn", "conv2_embed_bn")
 ATLAS = ("atlasnet", "VmapPointGenCon_0")
 
 
-def _entries(extra_layers: bool = False, atlasnet: bool = False):
-    """(torch conv prefix, torch bn prefix, kind, flax path, aux) rows."""
+def _entries(extra_layers: bool = False, atlasnet: bool = False,
+             embed: bool = True):
+    """(torch conv prefix, torch bn prefix, kind, flax path, aux) rows of
+    the MSG models (``embed``: with ``extra_conv_emb``)."""
     rows = []
-    for name, d_in, mlps in SA_CFG:
+    for name, mlps in SA_CFG:
         for i, mlp in enumerate(mlps):
             rows.append((f"{name}.conv_blocks.{i}.0",
                          f"{name}.bn_blocks.{i}.0",
-                         "gfl", (name, f"GroupedFirstLayer_{i}"), d_in))
+                         "gfl", (name, f"GroupedFirstLayer_{i}"), False))
             for j in range(1, len(mlp)):
                 rows.append((f"{name}.conv_blocks.{i}.{j}",
                              f"{name}.bn_blocks.{i}.{j}",
                              "mlp", (name, f"PointMLP_{i}"), j - 1))
-    for j in range(3):
-        rows.append((f"sa3.mlp_convs.{j}", f"sa3.mlp_bns.{j}",
-                     "mlp", ("sa3", "PointMLP_0"), j))
+    rows += _mlp_rows("sa3", 3)
     for name in FP_NAMES:
-        for j in range(0 if extra_layers and name == "fp1" else 2):
-            rows.append((f"{name}.mlp_convs.{j}", f"{name}.mlp_bns.{j}",
-                         "mlp", (name, "PointMLP_0"), j))
-    for nm in ("conv1", "conv2", "extra_conv_emb") + (
+        rows += _mlp_rows(name, 0 if extra_layers and name == "fp1" else 2)
+    for nm in ("conv1", "conv2") + ("extra_conv_emb",) * embed + (
             EXTRA_DENSES if extra_layers else ()):
         rows.append((nm, None, "dense", (nm,), None))
     for nm in ("bn1",) + (EXTRA_BNS if extra_layers else ()):
@@ -71,10 +89,89 @@ def _entries(extra_layers: bool = False, atlasnet: bool = False):
     return rows
 
 
-def _get(tree, path):
+def _mlp_rows(name: str, n: int, first: int = 0):
+    """Rows of ``PointMLP_0``'s layers ``first..n-1`` under ``name``, as
+    ``{name}.mlp_convs.{j}`` / ``{name}.mlp_bns.{j}``."""
+    return [(f"{name}.mlp_convs.{j}", f"{name}.mlp_bns.{j}", "mlp",
+             (name, "PointMLP_0"), j - first) for j in range(first, n)]
+
+
+def _ssg_entries():
+    """Rows of ``pointnet2_part_seg_ssg``."""
+    rows = []
+    for name in ("sa1", "sa2"):
+        rows.append((f"{name}.mlp_convs.0", f"{name}.mlp_bns.0", "gfl",
+                     (name, "GroupedFirstLayer_0"), True))
+        rows += _mlp_rows(name, 3, first=1)
+    rows += _mlp_rows("sa3", 3) + _mlp_rows("fp3", 2) + _mlp_rows("fp2", 2) \
+        + _mlp_rows("fp1", 3)
+    return rows + [("conv1", None, "dense", ("conv1",), None),
+                   ("conv2", None, "dense", ("conv2",), None),
+                   ("bn1", None, "bn", ("bn1",), None)]
+
+
+def _stn_entries(name: str):
+    return ([(f"{name}.conv{j + 1}", None, "dense", (name, f"Dense_{j}"),
+              None) for j in range(3)]
+            + [(f"{name}.fc{j - 2}", None, "linear", (name, f"Dense_{j}"),
+                None) for j in range(3, 6)]
+            + [(f"{name}.bn{j + 1}", None, "bn", (name, f"BatchNorm_{j}"),
+                None) for j in range(5)])
+
+
+def _pointnet_entries():
+    """Rows of ``pointnet_part_seg``."""
+    rows = _stn_entries("stn") + _stn_entries("fstn")
+    for nm in ("1", "2", "3", "4", "5", "s1", "s2", "s3"):
+        rows += [(f"conv{nm}", None, "dense", (f"conv{nm}",), None),
+                 (f"bn{nm}", None, "bn", (f"bn{nm}",), None)]
+    return rows + [("convs4", None, "dense", ("convs4",), None)]
+
+
+def _dgcnn_entries():
+    """Rows of ``dgcnn`` (flax auto-names, module docstring)."""
+    enc = ("dgcnn", "DGCNNEncoderGn_0")
+    rows = []
+    for i in range(3):
+        path = enc + (f"_EdgeConv_{i}",)
+        rows += [(f"dgcnn.encoder.edge_convs.{i}.conv", None, "conv_nb",
+                  path, True),
+                 (f"dgcnn.encoder.edge_convs.{i}.norm", None, "gn",
+                  path + ("GroupNorm_0",), None)]
+    rows += [("dgcnn.encoder.conv", None, "dense", enc + ("Dense_0",), None),
+             ("dgcnn.encoder.norm", None, "gn", enc + ("GroupNorm_0",),
+              None)]
+    for j in range(3):
+        rows += [(f"dgcnn.convs.{j}", None, "dense", ("dgcnn", f"Dense_{j}"),
+                  None),
+                 (f"dgcnn.norms.{j}", None, "gn",
+                  ("dgcnn", f"GroupNorm_{j}"), None)]
+    return rows + [("dgcnn.seg", None, "dense", ("dgcnn", "Dense_3"), None),
+                   ("dgcnn.embed", None, "conv_nb", ("dgcnn", "Dense_4"),
+                    False)]
+
+
+def _model_entries(params):
+    """The rows of the model whose parameter tree ``params`` is."""
+    if "dgcnn" in params:
+        return _dgcnn_entries()
+    if "stn" in params:
+        return _pointnet_entries()
+    if "GroupedFirstLayer_1" not in params["sa1"]:
+        return _ssg_entries()
+    return _entries(extra_layers="fp1_conv1" in params,
+                    atlasnet="atlasnet" in params,
+                    embed="extra_conv_emb" in params)
+
+
+def _tree(tree, path):
     for p in path:
         tree = tree[p]
-    return np.asarray(tree, np.float32)
+    return tree
+
+
+def _get(tree, path):
+    return np.asarray(_tree(tree, path), np.float32)
 
 
 def _conv(w2, conv2d: bool):
@@ -85,16 +182,20 @@ def _conv(w2, conv2d: bool):
 
 def state_dict_from_jax(variables) -> dict:
     """``{"params": ..., "batch_stats": ..., "selfsup_state": ...}``
-    nested dicts of arrays of the JAX ``pointnet2_part_seg_msg.get_model``
-    (with or without ``extra_layers`` and ``reconstruct``) or
-    ``pretrain_pointnet2_part_seg_msg.get_model`` -> the port's state_dict
-    (torch f32 tensors); the variant is read from the parameter tree.
-    The self-sup entropy weight ``selfsup_state["beta"]`` becomes
-    ``beta``; without a ``selfsup_state`` it is 1.0, as at the JAX
-    model's init."""
-    sd = _convert(variables["params"], variables["batch_stats"])
-    beta = variables.get("selfsup_state", {}).get("beta", 1.0)
-    sd["beta"] = torch.tensor(np.asarray(beta, np.float32))
+    nested dicts of arrays of a JAX part-seg model -> the port's
+    state_dict (torch f32 tensors): ``pointnet2_part_seg_msg`` (with or
+    without ``extra_layers`` and ``reconstruct``),
+    ``pretrain_pointnet2_part_seg_msg``, ``pointnet2_part_seg_ssg``,
+    ``pointnet_part_seg``, ``dgcnn`` or ``reconstruction``, read from
+    the parameter tree.  For the models with the self-sup
+    ``extra_conv_emb``, the entropy weight ``selfsup_state["beta"]``
+    becomes ``beta``; without a ``selfsup_state`` it is 1.0, as at the
+    JAX model's init."""
+    params = variables["params"]
+    sd = _convert(params, variables.get("batch_stats", {}))
+    if "extra_conv_emb" in params:
+        beta = variables.get("selfsup_state", {}).get("beta", 1.0)
+        sd["beta"] = torch.tensor(np.asarray(beta, np.float32))
     return sd
 
 
@@ -105,13 +206,11 @@ def params_from_jax(params) -> dict:
     return _convert(params, None)
 
 
-def _convert(params, stats) -> dict:
-    """The map of :func:`state_dict_from_jax` over the rows of the
-    variant the tree holds; without ``stats`` the batch-norm running
-    statistics are left out."""
+def _convert(params, stats, rows=None) -> dict:
+    """The map of :func:`state_dict_from_jax` over ``rows``, by default
+    those of the model the tree holds; without ``stats`` the batch-norm
+    running statistics are left out."""
     sd = {}
-    rows = _entries(extra_layers="fp1_conv1" in params,
-                    atlasnet="atlasnet" in params)
 
     def bn(prefix, path, scale, bias, mean, var):
         sd[f"{prefix}.weight"] = _get(params, path + (scale,))
@@ -120,14 +219,17 @@ def _convert(params, stats) -> dict:
             sd[f"{prefix}.running_mean"] = _get(stats, path + (mean,))
             sd[f"{prefix}.running_var"] = _get(stats, path + (var,))
 
-    for conv, bnp, kind, path, aux in rows:
+    for conv, bnp, kind, path, aux in rows or _model_entries(params):
         if kind == "gfl":
-            if aux:
-                w2 = np.concatenate([_get(params, path + ("w_feat",)),
-                                     _get(params, path + ("w_xyz",))], 0)
+            # aux: the xyz columns first (SSG), else the features (MSG)
+            w_xyz = _get(params, path + ("w_xyz",))
+            if "w_feat" in _tree(params, path):
+                w_feat = _get(params, path + ("w_feat",))
+                w2 = np.concatenate([w_xyz, w_feat] if aux
+                                    else [w_feat, w_xyz], 0)
                 b = _get(params, path + ("b_feat",))
             else:
-                w2 = _get(params, path + ("w_xyz",))
+                w2 = w_xyz
                 b = _get(params, path + ("bias",))
             sd[f"{conv}.weight"] = _conv(w2, True)
             sd[f"{conv}.bias"] = b
@@ -143,9 +245,17 @@ def _convert(params, stats) -> dict:
         elif kind == "chart":
             sd[f"{conv}.weight"] = _get(params, path + ("kernel",))
             sd[f"{conv}.bias"] = _get(params, path + ("bias",))
-        elif kind == "dense":
+        elif kind in ("dense", "linear"):
+            w2 = _get(params, path + ("kernel",))
+            sd[f"{conv}.weight"] = np.ascontiguousarray(w2.T) \
+                if kind == "linear" else _conv(w2, False)
+            sd[f"{conv}.bias"] = _get(params, path + ("bias",))
+        elif kind == "conv_nb":
+            # a bias-free 1x1 conv: Conv2d when aux, else Conv1d
             sd[f"{conv}.weight"] = _conv(_get(params, path + ("kernel",)),
-                                         False)
+                                         aux)
+        elif kind == "gn":
+            sd[f"{conv}.weight"] = _get(params, path + ("scale",))
             sd[f"{conv}.bias"] = _get(params, path + ("bias",))
         else:
             bn(conv, path, "scale", "bias", "mean", "var")

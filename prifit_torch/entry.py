@@ -16,6 +16,8 @@ import torch
 
 from prifit_torch.models.pointnet2_part_seg_msg import get_model
 from prifit_torch.nn.atlasnet import ChartDense
+from prifit_torch.nn.norm import GroupNorm
+from prifit_torch.nn.pointnet import STN
 from prifit_torch.train.state import create_train_state
 from prifit_torch.utils.device import resolve_device
 
@@ -33,17 +35,28 @@ SELFSUP_OPTIONS = dict(include_entropy_loss=True, include_intersect_loss=True,
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator
                  ) -> None:
-    """Lecun-normal conv and chart-dense weights (std 1/sqrt(fan_in)) and
-    zero biases, drawn from ``generator`` on the CPU."""
+    """The JAX package's initializers, drawn from ``generator`` on the
+    CPU: lecun-normal weights (std 1/sqrt(fan_in)) and zero biases for
+    every 1x1 conv, ``nn.Linear`` and chart dense; scale 1 and bias 0 for
+    every group norm; and zero for a spatial transformer's last dense,
+    which then outputs the identity."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv2d,
-                                ChartDense)):
-                fan_in = mod.in_features if isinstance(
-                    mod, ChartDense) else mod.in_channels
+                                torch.nn.Linear, ChartDense)):
+                fan_in = mod.in_channels if isinstance(
+                    mod, (torch.nn.Conv1d, torch.nn.Conv2d)) \
+                    else mod.in_features
                 w = torch.randn(mod.weight.shape, generator=generator)
                 mod.weight.copy_(w / fan_in ** 0.5)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, GroupNorm):
+                mod.weight.fill_(1.0)
                 mod.bias.zero_()
+        for mod in model.modules():
+            if isinstance(mod, STN):
+                mod.fc3.weight.zero_()
 
 
 def flagship(batch: int, npoint: int, *, device=None):

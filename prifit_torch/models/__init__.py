@@ -3,18 +3,24 @@
 ``get_module`` keeps the JAX package's registry rule
 (``prifit_tpu/models/__init__.py``): a name is one of ``MODEL_NAMES``, and
 any name containing ``"dgcnn"`` means ``dgcnn``; an unknown name raises
-``ValueError``.  ``pointnet2_part_seg_msg`` (with its ``extra_layers``
-and ``reconstruct`` variants) and ``pretrain_pointnet2_part_seg_msg``
-are ported; the other registry names raise ``NotImplementedError``
-(ROADMAP.md §1 item 4).
+``ValueError``.  Ported are the six part-seg models the JAX trainers
+build: ``pointnet2_part_seg_msg`` (with its ``extra_layers`` and
+``reconstruct`` variants), ``pretrain_pointnet2_part_seg_msg``,
+``pointnet2_part_seg_ssg``, ``pointnet_part_seg``, ``dgcnn`` and
+``reconstruction``.  The classification and semantic-segmentation names
+raise ``NotImplementedError`` (ROADMAP.md §1 item 4).
 """
 
 import importlib
 
 from prifit_torch.models import (
     common,
+    dgcnn,
     pointnet2_part_seg_msg,
+    pointnet2_part_seg_ssg,
+    pointnet_part_seg,
     pretrain_pointnet2_part_seg_msg,
+    reconstruction,
 )
 from prifit_torch.models.common import (
     SegOutput,
@@ -35,7 +41,9 @@ MODEL_NAMES = (
     "dgcnn",
     "reconstruction",
 )
-PORTED = ("pointnet2_part_seg_msg", "pretrain_pointnet2_part_seg_msg")
+PORTED = ("pointnet2_part_seg_msg", "pretrain_pointnet2_part_seg_msg",
+          "pointnet2_part_seg_ssg", "pointnet_part_seg", "dgcnn",
+          "reconstruction")
 
 
 def get_module(name: str):
@@ -51,7 +59,8 @@ def get_module(name: str):
     return importlib.import_module(f"prifit_torch.models.{name}")
 
 
-__all__ = ["MODEL_NAMES", "PORTED", "common", "get_module",
-           "pointnet2_part_seg_msg", "pretrain_pointnet2_part_seg_msg",
-           "SegOutput", "nll_loss",
+__all__ = ["MODEL_NAMES", "PORTED", "common", "dgcnn", "get_module",
+           "pointnet2_part_seg_msg", "pointnet2_part_seg_ssg",
+           "pointnet_part_seg", "pretrain_pointnet2_part_seg_msg",
+           "reconstruction", "SegOutput", "nll_loss",
            "pairwise_contrastive_loss"]

@@ -2,7 +2,8 @@
 
 Port of ``prifit_tpu/models/common.py``: ``SegOutput``, ``nll_loss``,
 ``pairwise_contrastive_loss``, ``chamfer_loss_dense``,
-``encoder_dtypes``, ``stage_cfg`` and ``maybe_quant``.
+``encoder_dtypes``, ``stage_cfg`` and ``maybe_quant``; with the draws the
+models share (``region_keys``, ``dropout``).
 """
 
 from typing import Any, NamedTuple
@@ -10,6 +11,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.profiler import record_function
 
+from prifit_torch.nn.mixed import fold_in
 from prifit_torch.nn.pointnet2 import FQ, MX, MXSR
 
 
@@ -141,3 +143,34 @@ def maybe_quant(x: torch.Tensor, quant: bool) -> torch.Tensor:
         return x
     x = x.float()
     return x + (x.bfloat16().float() - x).detach()
+
+
+def region_keys(stages, training: bool, n: int, generator, sr_key):
+    """The ``n`` stochastic-rounding keys of an encoder's regions in
+    forward call order, ``fold_in(base, i)``, or ``n`` Nones when no stage
+    of ``stages`` trains in ``MXSR``.  The base key of two uint32 words
+    is ``sr_key``, else drawn from ``generator`` (the step's one read of
+    it to the host)."""
+    if not (training and any(s.dtype == MXSR for s in stages)):
+        return [None] * n
+    if sr_key is None:
+        if generator is None:
+            raise ValueError("training in mxsr needs a generator or an "
+                             "sr_key for its stochastic rounding")
+        sr_key = torch.randint(0, 2 ** 32, (2,), generator=generator,
+                               device=generator.device).tolist()
+    return [fold_in(sr_key, i) for i in range(n)]
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout of ``x`` at ``rate`` in training, its mask drawn
+    from ``generator`` (which training at a rate above 0 needs)."""
+    if not training or rate <= 0:
+        return x
+    if generator is None:
+        raise ValueError("training with dropout needs a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))

@@ -46,14 +46,15 @@ from prifit_torch.geometry.convex_loss import convex_loss
 from prifit_torch.models.common import (
     SegOutput,
     chamfer_loss_dense,
+    dropout,
     encoder_dtypes,
     maybe_quant,
     nll_loss,
     pairwise_contrastive_loss,
+    region_keys,
     stage_cfg,
 )
 from prifit_torch.nn.atlasnet import AtlasNet
-from prifit_torch.nn.mixed import MXSR, fold_in
 from prifit_torch.nn.norm import BatchNorm
 from prifit_torch.nn.pointnet2 import (
     FeaturePropagation,
@@ -172,17 +173,9 @@ class get_model(nn.Module):
     def _region_keys(self, generator, sr_key):
         """The nine regions' stochastic-rounding keys, or Nones when no
         stage trains in ``mxsr``."""
-        stages = (self.sa1, self.sa2, self.sa3, self.fp3, self.fp2, self.fp1)
-        if not (self.training and any(s.dtype == MXSR for s in stages)):
-            return [None] * 9
-        if sr_key is None:
-            if generator is None:
-                raise ValueError("training in mxsr needs a generator or an "
-                                 "sr_key for its stochastic rounding")
-            # the one read of the step's base key to the host
-            sr_key = torch.randint(0, 2 ** 32, (2,), generator=generator,
-                                   device=generator.device).tolist()
-        return [fold_in(sr_key, i) for i in range(9)]
+        return region_keys((self.sa1, self.sa2, self.sa3, self.fp3,
+                            self.fp2, self.fp1), self.training, 9,
+                           generator, sr_key)
 
     def forward(self, xyz: torch.Tensor, cls_label: torch.Tensor,
                 chamfer_points: torch.Tensor | None = None, *,
@@ -277,14 +270,7 @@ class get_model(nn.Module):
             total_loss = total_loss + chamfer_loss_dense(recon, l0_xyz)
             chamfer = zero
 
-        x = feat
-        if self.training and self.dropout_rate > 0:
-            if generator is None:
-                raise ValueError("training with dropout needs a generator")
-            keep = 1.0 - self.dropout_rate
-            mask = torch.rand(x.shape, generator=generator,
-                              device=generator.device) < keep
-            x = torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+        x = dropout(feat, self.dropout_rate, self.training, generator)
         x = torch.log_softmax(self._head(x, self.conv2), dim=-1)
         hidden = tuple(h.float() for h in (l1_points, l2_points, l3_points))
         return SegOutput(seg_logits=x, hidden=hidden, feat=feat,

@@ -1,6 +1,7 @@
 """Batch normalization over all axes but the last (channel-last).
 
-Port of ``prifit_tpu/nn/norm.py::BatchNorm``.  Statistics follow the JAX
+Port of ``prifit_tpu/nn/norm.py::BatchNorm`` (and below it, flax's
+``nn.GroupNorm`` as :class:`GroupNorm`).  Statistics follow the JAX
 package, not ``F.batch_norm``: f32 ``E[x^2] - E[x]^2`` (floored at 0) over
 every axis but the last, torch-convention running update
 ``running = (1 - m) running + m stat`` with the UNBIASED variance tracked,
@@ -61,3 +62,31 @@ class BatchNorm(nn.Module):
         unbiased = var * (n / max(n - 1.0, 1.0))
         self.running_mean.mul_(1.0 - momentum).add_(momentum * mean)
         self.running_var.mul_(1.0 - momentum).add_(momentum * unbiased)
+
+
+class GroupNorm(nn.Module):
+    """Group normalization of a channel-last ``x [B, ..., F]`` with flax's
+    ``nn.GroupNorm`` semantics (the JAX package's DGCNN), which differ
+    from ``torch.nn.GroupNorm``'s: epsilon 1e-6, and f32 statistics
+    ``E[x^2] - E[x]^2`` (floored at 0) over every axis but the batch
+    axis, within each of ``num_groups`` groups of consecutive channels.
+    No running statistics.  Parameters ``weight`` (1) and ``bias`` (0)
+    ``[F]``."""
+
+    eps = 1e-6
+
+    def __init__(self, num_groups: int, num_features: int):
+        super().__init__()
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        F = x.shape[-1]
+        g = x.float().reshape(x.shape[0], -1, self.num_groups,
+                              F // self.num_groups)
+        mean = torch.mean(g, dim=(1, 3), keepdim=True)
+        mean2 = torch.mean(g * g, dim=(1, 3), keepdim=True)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        y = ((g - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return (y * self.weight + self.bias).to(x.dtype)

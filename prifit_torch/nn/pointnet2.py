@@ -5,9 +5,11 @@ train-mode chain).  The modules hold the reference's 1x1 convolutions and
 batch norms under the reference state_dict names
 (``conv_blocks.{i}.{j}``, ``bn_blocks.{i}.{j}``, ``mlp_convs.{j}``,
 ``mlp_bns.{j}``), and apply each convolution as a dense layer over the
-last axis.  A grouped first layer is the first convolution of each MSG
-block; its weight is ``[F, d_in + 3]`` with the features FIRST, split at
-run time into ``w_feat`` and ``w_xyz``.
+last axis.  A grouped first layer is the first convolution of each SA
+block; its weight is ``[F, d_in + 3]``, split at run time into
+``w_feat`` and ``w_xyz``: the features FIRST in an MSG layer, the xyz
+first in the single-scale :class:`SetAbstraction` (the reference's
+column orders).
 
 Compute dtype (``dtype`` below): None runs f32; ``torch.bfloat16`` casts
 each dense layer's input and parameters to bf16; ``FQ`` rounds matmul
@@ -122,40 +124,51 @@ def point_mlp(convs, bns, x: torch.Tensor, dtype,
     return x
 
 
-def gfl_pre_affine(conv, d_in: int, xyz, points):
-    """Per-point affine part ``W_f feat + W_x xyz + b``, ``[B, N, F]``."""
+def gfl_weights(conv, d_in: int, xyz_first: bool = False):
+    """``(w_feat [F, d_in], w_xyz [F, 3])`` of a grouped first layer's
+    weight ``[F, d_in + 3]``: the features first (MSG), or with
+    ``xyz_first`` the xyz first (SSG)."""
     w = conv_weight(conv)
-    pre = dense(xyz, w[:, d_in:])
+    if xyz_first:
+        return w[:, 3:], w[:, :3]
+    return w[:, :d_in], w[:, d_in:]
+
+
+def gfl_pre_affine(conv, d_in: int, xyz, points, xyz_first: bool = False):
+    """Per-point affine part ``W_f feat + W_x xyz + b``, ``[B, N, F]``."""
+    w_feat, w_xyz = gfl_weights(conv, d_in, xyz_first)
+    pre = dense(xyz, w_xyz)
     if d_in:
-        return pre + dense(points, w[:, :d_in], conv.bias)
+        return pre + dense(points, w_feat, conv.bias)
     return pre + conv.bias
 
 
-def gfl_pre_tensor(conv, d_in: int, xyz, points, new_xyz, idx):
+def gfl_pre_tensor(conv, d_in: int, xyz, points, new_xyz, idx,
+                   xyz_first: bool = False):
     """Pre-BN grouped activation ``[B, S, K, F]`` of the grouped first
     layer: one exact gather per scale of whichever side is narrower (raw
     inputs vs the ``pre_affine`` projection), minus the projected center
     (``GroupedFirstLayer.pre_tensor`` in the JAX package)."""
-    w = conv_weight(conv)
-    w_xyz = w[:, d_in:]
-    if 3 + d_in <= w.shape[0]:
+    w_feat, w_xyz = gfl_weights(conv, d_in, xyz_first)
+    if 3 + d_in <= w_xyz.shape[0]:
         grouped = dense(gather_neighbors(xyz, idx), w_xyz)
         if d_in:
             grouped = grouped + dense(gather_neighbors(points, idx),
-                                      w[:, :d_in], conv.bias)
+                                      w_feat, conv.bias)
         else:
             grouped = grouped + conv.bias
     else:
-        grouped = gather_neighbors(gfl_pre_affine(conv, d_in, xyz, points),
-                                   idx)
+        grouped = gather_neighbors(
+            gfl_pre_affine(conv, d_in, xyz, points, xyz_first), idx)
     return grouped - dense(new_xyz, w_xyz)[:, :, None, :]
 
 
 def grouped_first_layer(conv, bn, d_in: int, xyz, points, new_xyz, idx,
-                        dtype, bn_momentum: float):
+                        dtype, bn_momentum: float, xyz_first: bool = False):
     """``[B, S, K, F]`` post-BN, post-relu output of the grouped first
     layer, cast to the chain's dtype."""
-    grouped = gfl_pre_tensor(conv, d_in, xyz, points, new_xyz, idx)
+    grouped = gfl_pre_tensor(conv, d_in, xyz, points, new_xyz, idx,
+                             xyz_first)
     grouped = cast(grouped, eff(dtype))
     grouped = bn(grouped, bn_momentum)
     if dtype == FQ:
@@ -173,6 +186,24 @@ def fps_start(xyz: torch.Tensor, train: bool,
                               device=generator.device)
         return start.to(xyz.device)
     return None
+
+
+def sa_scale(convs, bns, d_in: int, xyz, points, new_xyz, idx, dtype,
+             bn_momentum: float, train: bool, sr_key,
+             xyz_first: bool = False):
+    """One SA scale, ``[B, S, F_last]``: the grouped first layer, the MLP
+    chain and the max over the neighbours, as one mixed-precision region
+    when training in ``MX``/``MXSR`` (``_run_scale`` in the JAX
+    package)."""
+    if train and dtype in (MX, MXSR):
+        pre = gfl_pre_tensor(convs[0], d_in, xyz, points, new_xyz, idx,
+                             xyz_first)
+        return region(dtype, pre, bns[0], convs[1:], bns[1:], True,
+                      bn_momentum, sr_key)
+    h = grouped_first_layer(convs[0], bns[0], d_in, xyz, points, new_xyz,
+                            idx, dtype, bn_momentum, xyz_first)
+    h = point_mlp(convs[1:], bns[1:], h, dtype, bn_momentum)
+    return torch.amax(h, dim=-2)
 
 
 class SetAbstractionMsg(nn.Module):
@@ -218,22 +249,55 @@ class SetAbstractionMsg(nn.Module):
             idx_list = [query_ball_point(r, k, xyz, new_xyz)
                         for r, k in zip(self.radius_list,
                                         self.nsample_list)]
-        outs = []
-        for i, (idx, convs, bns) in enumerate(zip(
-                idx_list, self.conv_blocks, self.bn_blocks)):
-            if train and self.dtype in (MX, MXSR):
-                pre = gfl_pre_tensor(convs[0], self.d_in, xyz, points,
-                                     new_xyz, idx)
-                outs.append(region(self.dtype, pre, bns[0], convs[1:],
-                                   bns[1:], True, bn_momentum,
-                                   None if sr_keys is None else sr_keys[i]))
-                continue
-            h = grouped_first_layer(convs[0], bns[0], self.d_in, xyz,
-                                    points, new_xyz, idx, self.dtype,
-                                    bn_momentum)
-            h = point_mlp(convs[1:], bns[1:], h, self.dtype, bn_momentum)
-            outs.append(torch.amax(h, dim=-2))
+        outs = [sa_scale(convs, bns, self.d_in, xyz, points, new_xyz, idx,
+                         self.dtype, bn_momentum, train,
+                         None if sr_keys is None else sr_keys[i])
+                for i, (idx, convs, bns) in enumerate(zip(
+                    idx_list, self.conv_blocks, self.bn_blocks))]
         return new_xyz, torch.cat(outs, dim=-1)
+
+
+class SetAbstraction(nn.Module):
+    """Single-scale grouping SA layer (``SetAbstraction`` of the JAX
+    package, reference ``pointnet_util.py:160-201``): one FPS, the
+    nearest-``nsample`` fused ball query (or with ``fused=False`` the
+    first-``nsample``-by-index :func:`query_ball_point`), then one scale
+    of :func:`sa_scale`.  Grouped features are ``[xyz - c, feats]``, xyz
+    FIRST, so the first weight is ``[F, 3 + d_in]``.  The state_dict
+    names are the reference's (``mlp_convs.{j}``, ``mlp_bns.{j}``)."""
+
+    def __init__(self, npoint: int, radius: float, nsample: int,
+                 in_channel: int, mlp, fused: bool = True, dtype=None):
+        super().__init__()
+        self.npoint = npoint
+        self.radius = radius
+        self.nsample = nsample
+        self.d_in = in_channel
+        self.fused = fused
+        self.dtype = dtype
+        self.mlp_convs = nn.ModuleList()
+        self.mlp_bns = nn.ModuleList()
+        last = in_channel + 3
+        for out in mlp:
+            self.mlp_convs.append(nn.Conv2d(last, out, 1))
+            self.mlp_bns.append(BatchNorm(out))
+            last = out
+
+    def forward(self, xyz, points, bn_momentum: float = 0.1,
+                generator: torch.Generator | None = None, sr_key=None):
+        """xyz ``[B, N, 3]``, points ``[B, N, d_in]`` -> (new_xyz
+        ``[B, npoint, 3]``, new_points ``[B, npoint, mlp[-1]]``)."""
+        train = self.training
+        _, new_xyz = farthest_points(xyz, self.npoint,
+                                     fps_start(xyz, train, generator))
+        if self.fused:
+            (idx,) = ball_query_nearest_shared([self.radius], [self.nsample],
+                                               xyz, new_xyz)
+        else:
+            idx = query_ball_point(self.radius, self.nsample, xyz, new_xyz)
+        return new_xyz, sa_scale(self.mlp_convs, self.mlp_bns, self.d_in,
+                                 xyz, points, new_xyz, idx, self.dtype,
+                                 bn_momentum, train, sr_key, xyz_first=True)
 
 
 class SetAbstractionAll(nn.Module):

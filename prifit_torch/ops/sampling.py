@@ -83,6 +83,23 @@ def ball_query_nearest_shared(radius_list, nsample_list, xyz: torch.Tensor,
     return out
 
 
+def sample_and_group(npoint: int, radius: float, nsample: int,
+                     xyz: torch.Tensor, points: torch.Tensor | None,
+                     start: torch.Tensor | None = None):
+    """FPS, the first-``nsample``-by-index ball query, the gather, and
+    the center-relative coordinates concatenated XYZ FIRST with the
+    features (reference ``pointnet_util.py:110-137``): ``new_xyz [B,
+    npoint, 3]`` and ``new_points [B, npoint, nsample, 3 (+D)]``.
+    ``start``: FPS's first indices, as in :func:`farthest_points`."""
+    _, new_xyz = farthest_points(xyz, npoint, start)
+    idx = query_ball_point(radius, nsample, xyz, new_xyz)
+    grouped = gather_neighbors(xyz, idx) - new_xyz[:, :, None, :]
+    if points is None:
+        return new_xyz, grouped
+    return new_xyz, torch.cat([grouped, gather_neighbors(points, idx)],
+                              dim=-1)
+
+
 def sample_and_group_all(xyz: torch.Tensor, points: torch.Tensor | None):
     """One global group: ``new_xyz [B, 1, 3]`` zeros and
     ``new_points [B, 1, N, 3 (+D)]`` (xyz first)."""

@@ -116,7 +116,12 @@ def make_selfsup_step(*, fused_augment: bool = False,
                         bn_momentum=bn_momentum, generator=generator,
                         sr_key=sr_key, **kwargs)
             ss_loss = torch.mean(out.total_loss) * lmbda
-        ss_loss.backward()
+        # a model with no convex loss (SSG, PointNet, reconstruction)
+        # returns a constant 0: the JAX step still takes the update, with
+        # zero gradients, and the forward still moves the batch-norm
+        # statistics
+        if ss_loss.requires_grad:
+            ss_loss.backward()
         _apply_gradients(state, lr)
         return state, {"ss_loss": ss_loss.detach(),
                        "chamfer_loss": out.chamfer_loss.detach()}
