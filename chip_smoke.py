@@ -72,6 +72,23 @@ counts set to 0 just before it and read just after:
     exactly (``model_iteration_counts``), each beside its bare steps and
     with its peak memory, and ``cli/testing.py`` on each checkpoint on
     the card against the CPU.
+  - the registry's other models and the ModelNet40 probe (``registry``
+    phase, ``registry_phase``), on synthetic ModelNet40 (40 categories
+    of 8 train and 2 test shapes of 2500 points with normals), S3DIS
+    (areas 1-5) and ACD trees: ``pretrain_partseg.main --modelnet_val``
+    at B=24, N=2048, the default dtype, 2 epochs of 4 iterations, each
+    ending with the linear-SVM probe (launches of each iteration, val
+    batch and probe checked exactly), with the probe's features and SVM
+    on the card against the CPU; then 8 f32 Adam steps at B=24, N=1024
+    of ``pointnet_cls``, ``pointnet2_cls_ssg`` and ``pointnet2_cls_msg``
+    on ModelNet40 batches and 20 at B=16, N=4096 of ``pointnet_sem_seg``
+    and ``pointnet2_sem_seg`` on S3DIS blocks (launches checked every
+    step, block accuracy above 0.55 in one of the last 10), each with
+    one f32 step card against CPU (xyz on an exact grid, and the MSG
+    classifier's also off it, its ball queries compared); and FPS and
+    the gather bit for bit at the registry's shapes (FPS 1024 -> 512 at
+    B=24 and 4096 -> 1024 -> 256 -> 64 -> 16 at B=16; the gather at every
+    table one forward of each PointNet++ model gives it).
 
 It checks that every kernel was launched by the paths that run it, and
 no other, and that every cotangent the mean-shift backward gets on the
@@ -107,13 +124,15 @@ It prints:
   - the pretrainer's ms per iteration beside the bare self-sup step and
     per val batch, with the launches of each;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the seventeen paths (and their sum; ``trainer`` is the whole first
+    the twenty-three paths (and their sum; ``trainer`` is the whole first
     trainer run with its eval, ``pretrainer`` and ``pretrain_val`` the
     pretrain run's iterations and val batches, ``extra_layers`` and
     ``reconstruct`` those trainer runs, ``model_<name>`` the ``models``
     phase's runs) and per trainer iteration, per pretrain iteration, per
     pretrain val batch and per iteration of each of the ``models``
-    phase's runs, its error against the
+    phase's runs (``probe`` is the two probes' launches of the
+    ``registry`` phase, ``model_<name>`` also each registry model's
+    run), its error against the
     plain version, and the times of the calls one forward or one step
     makes (kernel, plain version, library call) beside the least time the
     card could take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
@@ -125,7 +144,9 @@ It prints:
     (``bound_f32_ms``) and its time on rows that are all equal
     (``equal_rows_ms``), and FPS's each call's time (``per_call_ms``),
     device-only time (``device_ms``), device microseconds a step
-    (``us_per_step``) and ``(T, P)`` (``launch_shapes``);
+    (``us_per_step``) and ``(T, P)`` (``launch_shapes``); FPS's and the
+    gather's rows also their times at the registry's shapes
+    (``registry``);
   - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
@@ -1531,13 +1552,14 @@ def _check_counts(got, what, backward=True):
 
 def _pretrain_run(pretrain, args, kernels):
     """``pretrain.main(args)`` on the card with the launch counts reset
-    just before; per train iteration and per val batch (through its
-    hooks, after a synchronize) the wall clock and the counts.  Returns
-    the best val loss, the iteration walls within an epoch (an epoch's
-    first iteration waits for its new prefetch stream, so the walls after
-    it), the walls of each epoch's first val batch (which waits for the
-    val stream's first batch) and of the others, and each iteration's
-    and val batch's launches."""
+    just before; per train iteration, per val batch and per ModelNet40
+    probe (through its hooks, after a synchronize) the wall clock and the
+    counts.  Returns the best val loss, the iteration walls within an
+    epoch (an epoch's first iteration waits for its new prefetch stream,
+    so the walls after it), the walls of each epoch's first val batch
+    (which waits for the val stream's first batch) and of the others,
+    each iteration's, val batch's and probe's launches, and each probe's
+    result."""
     marks = []
 
     def mark(kind):
@@ -1551,14 +1573,19 @@ def _pretrain_run(pretrain, args, kernels):
     t0 = time.perf_counter()
     zero = kernels.launch_counts()
     best = pretrain.main(args, device="cuda", on_iteration=mark("it"),
-                         on_val_batch=mark("val"))
+                         on_val_batch=mark("val"), on_probe=mark("probe"))
     out = dict(best=best, total_s=time.perf_counter() - t0, walls=[],
-               val_first_walls=[], val_walls=[], it_counts=[], val_counts=[])
+               val_first_walls=[], val_walls=[], it_counts=[], val_counts=[],
+               probe_counts=[], probes=[])
     prev = ("start", -1, -1, t0, zero)
     for m in marks:
         diff = {k: m[4][k] - prev[4][k] for k in zero}
-        (out["it_counts"] if m[0] == "it" else out["val_counts"]).append(
-            diff)
+        if m[0] == "probe":
+            out["probe_counts"].append(diff)
+            out["probes"].append(m[2])
+        else:
+            (out["it_counts"] if m[0] == "it" else
+             out["val_counts"]).append(diff)
         if m[0] == "it" and prev[0] == "it" and prev[1] == m[1]:
             out["walls"].append(m[3] - prev[3])
         elif m[0] == "val":
@@ -2585,8 +2612,671 @@ def narrow_embeddings(seed, shape=(RB, 2500, 8), sizes=(2, 3, 5, 8)):
 # its time with int32 indices, bandwidth's f32 bound and its time on rows
 # that are all equal, and FPS's time per call (events and device-only), per
 # step and launch shapes
+# ------------------------------------------------------------ registry
+
+# the registry's other five models: B, N and steps of each phase run (the
+# models' own recipes: ModelNet40 at 1024 points with normals, S3DIS
+# blocks of 4096 points with rgb), and the kernels one f32 train step
+# (forward and backward) launches
+REGISTRY = {
+    "pointnet_cls": (24, 1024, 8, {}),
+    "pointnet2_cls_ssg": (24, 1024, 8, dict(fps=2, gather=3)),
+    "pointnet2_cls_msg": (24, 1024, 8, dict(fps=2, gather=9)),
+    "pointnet_sem_seg": (16, 4096, 20, {}),
+    "pointnet2_sem_seg": (16, 4096, 20, dict(fps=4, gather=9)),
+}
+CLS_CLASSES, SEM_CLASSES = 40, 13
+# the card-against-CPU step's batch: B=8 where batch norms normalize B
+# rows after a max (the classifiers' heads, PointNet's transformers)
+REGISTRY_CHECK_B = {"pointnet2_sem_seg": 4}
+# the probe run: ModelNet40-layout shapes a category (train, test), the
+# ACD shapes (96 train: 4 iterations at B; 24 val: one batch) and epochs
+MODELNET_SPLIT = (8, 2)
+PROBE_ACD_SHAPES = 120
+PROBE_EPOCHS = 2
+# one probe batch: the pretrain model's eval forward (no convex loss)
+PROBE_BATCH = dict(fps=2, gather=10)
+
+
+def write_modelnet_tree(root, n_cats=CLS_CLASSES, split=MODELNET_SPLIT,
+                        n_points=2500, seed=3):
+    """A synthetic ModelNet40 tree in the layout of ``tools/
+    synthetic_primitive_dataset.py::make_modelnet_benchmark`` (the
+    ``modelnet40_normal_resampled`` layout): ``modelnet40_shape_names
+    .txt``, the train and test id lists and a csv file a shape of rows
+    x,y,z,nx,ny,nz.  A category is a fixed layout of 3 to 6 gaussian
+    blobs, jittered shape by shape; normals are random unit vectors."""
+    rng = np.random.default_rng(seed)
+    names = [f"cat{c:02d}" for c in range(n_cats)]
+    os.makedirs(root)
+    with open(os.path.join(root, "modelnet40_shape_names.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    ids = {"train": [], "test": []}
+    for c, name in enumerate(names):
+        os.makedirs(os.path.join(root, name))
+        centers = rng.normal(size=(3 + c % 4, 3))
+        for i in range(sum(split)):
+            token = f"{name}_{i:04d}"
+            ctr = centers + 0.1 * rng.normal(size=centers.shape)
+            pts = ctr[rng.integers(0, len(ctr), n_points)] \
+                + 0.2 * rng.normal(size=(n_points, 3))
+            nrm = rng.normal(size=(n_points, 3))
+            nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+            np.savetxt(os.path.join(root, name, token + ".txt"),
+                       np.concatenate([pts, nrm], 1), fmt="%.6f",
+                       delimiter=",")
+            ids["train" if i < split[0] else "test"].append(token)
+    for s, items in ids.items():
+        with open(os.path.join(root, f"modelnet40_{s}.txt"), "w") as f:
+            f.write("\n".join(items) + "\n")
+    return root
+
+
+def write_s3dis_rooms(root, n_points=100000, seed=4):
+    """Synthetic S3DIS rooms in the layout of ``tools/
+    synthetic_primitive_dataset.py::make_s3dis_rooms``: one
+    ``Area_<a>_room<a>.npy`` of ``[n_points, 7]`` rows (xyz, rgb in
+    0-255, label) in each of areas 1-5, 4 x 4 x 3 m: floor, ceiling and
+    four walls as planes, a table, two chairs, a wall board and three
+    clutter boxes, each class with its own height and extent, as in a
+    real scan."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    W, D, H = 4.0, 4.0, 3.0
+
+    def plane(n, extent, axis, value):
+        p = rng.uniform(0, 1, (n, 3)) * np.asarray(extent)
+        p[:, axis] = value
+        return p
+
+    def box(n, center, size):
+        p = rng.uniform(-0.5, 0.5, (n, 3))
+        ax = rng.integers(0, 3, n)
+        p[np.arange(n), ax] = np.sign(p[np.arange(n), ax] + 1e-9) * 0.5
+        return np.asarray(center) + p * np.asarray(size)
+
+    for area in range(1, 6):
+        tc = rng.uniform(1.2, 2.8, 2)
+        parts = [  # (sampler, label, weight)
+            (lambda n: plane(n, (W, D, 0), 2, 0.0), 1, W * D),
+            (lambda n: plane(n, (W, D, 0), 2, H), 0, W * D),
+            (lambda n: plane(n, (0, D, H), 0, 0.0), 2, D * H),
+            (lambda n: plane(n, (0, D, H), 0, W), 2, D * H),
+            (lambda n: plane(n, (W, 0, H), 1, 0.0), 2, W * H),
+            (lambda n: plane(n, (W, 0, H), 1, D), 2, W * H),
+            (lambda n, c=tuple(tc): box(n, (c[0], c[1], 0.74),
+                                        (1.2, 0.7, 0.06)), 7, 1.7)]
+        for _ in range(2):
+            cc = rng.uniform(0.6, 3.4, 2)
+            parts.append((lambda n, c=tuple(cc): box(
+                n, (c[0], c[1], 0.45), (0.45, 0.45, 0.9)), 8, 1.6))
+        by = rng.uniform(1.0, 3.0)
+        parts.append((lambda n, y=by: box(
+            n, (W - 0.02, y, 1.5), (0.04, 1.2, 0.9)), 11, 1.1))
+        for _ in range(3):
+            cc, sz = rng.uniform(0.3, 3.7, 2), rng.uniform(0.1, 0.5, 3)
+            parts.append((lambda n, c=tuple(cc), s=tuple(sz): box(
+                n, (c[0], c[1], s[2] / 2), s), 12, 0.6))
+        weights = np.array([w for _, _, w in parts])
+        counts = np.maximum((weights / weights.sum() * n_points).astype(int),
+                            48)
+        rows = []
+        for (sampler, label, _), n in zip(parts, counts):
+            rgb = np.clip(rng.normal(0.45 + 0.03 * label, 0.08, (n, 3)), 0,
+                          1) * 255.0
+            rows.append(np.concatenate([sampler(int(n)), rgb,
+                                        np.full((n, 1), label)], 1))
+        data = np.concatenate(rows).astype(np.float32)
+        rng.shuffle(data, axis=0)
+        np.save(os.path.join(root, f"Area_{area}_room{area}.npy"), data)
+    return root
+
+
+def registry_model(name, dev, train_dropout=True):
+    """``--model name`` of the registry on ``dev`` at its recipe's width
+    (40 classes with normals, or 13 classes with rgb), the JAX package's
+    initializers from seed 0; with ``train_dropout`` false its dropout
+    off."""
+    from prifit_torch.entry import init_weights
+    from prifit_torch.models import get_module
+    mod = get_module(name)
+    if name == "pointnet_cls":
+        model = mod.get_model(k=CLS_CLASSES, device="cpu")
+    elif "_cls_" in name:
+        model = mod.get_model(num_class=CLS_CLASSES, device="cpu")
+    elif name == "pointnet2_sem_seg":
+        model = mod.get_model(num_classes=SEM_CLASSES, device="cpu")
+    else:
+        model = mod.get_model(num_class=SEM_CLASSES, device="cpu")
+    init_weights(model, torch.Generator().manual_seed(0))
+    if not train_dropout:
+        for attr in ("dropout_rate", "dropout_rates"):
+            if hasattr(model, attr):
+                setattr(model, attr, 0.0 if attr == "dropout_rate"
+                        else (0.0, 0.0))
+    return model.to(dev), mod
+
+
+def registry_batches(name, roots, b, n, count, seed=0):
+    """``count`` host batches ``(points, target)`` of ``name``'s data:
+    ModelNet40 train clouds (``ModelNetDataLoader``, shuffled, the class
+    the target) or S3DIS train blocks (``S3DISDataset`` items drawn in
+    turn, the point labels the target)."""
+    from prifit_torch.data import DataLoader, ModelNetDataLoader, \
+        S3DISDataset
+    if "_cls" in name:
+        loader = DataLoader(ModelNetDataLoader(roots["modelnet"], npoint=n,
+                                               split="train"),
+                            b, shuffle=True, seed=seed)
+        out = []
+        while len(out) < count:
+            out += [(p, c[:, 0].astype(np.int64)) for p, c in loader]
+        return out[:count]
+    ds = S3DISDataset(roots["s3dis"], num_point=n,
+                      rng=np.random.default_rng(seed))
+    out = []
+    for _ in range(count):
+        xs, ys = zip(*(ds[0] for _ in range(b)))
+        out.append((np.stack(xs), np.stack(ys).astype(np.int64)))
+    return out
+
+
+def registry_train(name, roots, kernels):
+    """``name`` trained on the card for its recipe's steps with Adam (lr
+    1e-3, the trainers' coupled decay 1e-4) at its B and N, dropout and
+    the FPS starts drawn from a seeded generator; the launch counts reset
+    just before the first step, and every step's launches must equal
+    ``REGISTRY``'s.  Returns each step's wall (synchronized), loss and
+    accuracy (of the class, or of the points), the run's launches and its
+    peak memory."""
+    from prifit_torch.train.state import create_train_state
+    b, n, steps, expected = REGISTRY[name]
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(expected)
+    batches = [tuple(torch.as_tensor(a, device="cuda") for a in bt)
+               for bt in registry_batches(name, roots, b, n, steps)]
+    model, mod = registry_model(name, "cuda")
+    state = create_train_state(model.train())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, losses, accs = [], [], []
+    for i, (points, target) in enumerate(batches):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        state.optimizer.zero_grad(set_to_none=True)
+        for g in state.optimizer.param_groups:
+            g["lr"] = 1e-3
+        logp, aux = model(points, generator=gen)
+        loss = mod.get_loss(logp, target, aux)
+        loss.backward()
+        state.optimizer.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if got != want:
+            raise AssertionError(f"{name} step {i} launched {got}, not "
+                                 f"{want}")
+        losses.append(loss.item())
+        accs.append((logp.argmax(-1) == target).float().mean().item())
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name} losses {losses}")
+    return dict(walls=walls, losses=losses, accs=accs,
+                counts=kernels.launch_counts(),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _registry_zero_grad_bias(model, name):
+    """A bias of a registry model whose gradient is analytically 0: a
+    dense bias a batch norm follows (all but the last layer's), and a
+    batch-norm bias before a max over points or neighbours whose shift a
+    later batch norm removes (an SA layer's last, the PointNet encoder's
+    and its transformers' ``bn3``)."""
+    import re
+    last = {"pointnet2_sem_seg": "conv2.bias",
+            "pointnet_sem_seg": "conv4.bias"}.get(model, "fc3.bias")
+    if name != last and re.search(
+            r"(conv\d|conv_blocks\.\d+\.\d+|mlp_convs\.\d+|fc[12])\.bias$",
+            name):
+        return True
+    return re.fullmatch(r"sa\d\.(mlp_bns\.2|bn_blocks\.\d+\.2)\.bias|"
+                        r"feat\.(f?stn\.)?bn3\.bias", name) is not None
+
+
+def snap_xyz(points):
+    """``points`` with the xyz columns rounded to a grid of step 2^-k, the
+    largest step with every coordinate at most 1024 steps from 0: then
+    every squared distance the ball query and FPS compute (``|a|^2 +
+    |b|^2 - 2 a.b``, each term below 2^24 steps^2) is exact in f32, on
+    the card's matmul and the CPU's alike, so both pick the same
+    neighbours.  Off the grid a point within a rounding of a radius
+    falls on either side: the MSG classifier's B=8 loss read 8.3e-5
+    apart on an H100 80GB HBM3 (this check without the grid), and
+    :func:`registry_unsnapped_msg` holds that step off the grid."""
+    xyz = points[..., :3]
+    scale = 2.0 ** np.floor(np.log2(1024.0 / np.abs(xyz).max()))
+    out = points.copy()
+    out[..., :3] = np.round(xyz * scale) / scale
+    return out
+
+
+def _registry_step(name, dev, points, target):
+    """One f32 train-mode step of ``name`` on ``dev`` from the seeded
+    weights, dropout off, FPS from index 0: its loss and gradients."""
+    model, mod = registry_model(name, dev, train_dropout=False)
+    logp, aux = model.train()(torch.as_tensor(points, device=dev))
+    loss = mod.get_loss(logp, torch.as_tensor(target, device=dev), aux)
+    loss.backward()
+    return loss.item(), {k: p.grad.float().cpu()
+                         for k, p in model.named_parameters()}
+
+
+def _registry_steps_agree(name, card, cpu, what="card vs cpu"):
+    """The loss of step ``card`` within 1e-5 relative of ``cpu``'s and
+    every gradient within 5e-2 of the CPU gradient's norm (the limits of
+    ``train_card_vs_cpu``); returns the largest gradient error."""
+    (lg, gg), (lc, gc) = card, cpu
+    if not abs(lg - lc) <= 1e-5 * abs(lc):
+        raise AssertionError(f"{name} {what}: loss {lg} against {lc}")
+    err = 0.0
+    for k, r in gc.items():
+        if _registry_zero_grad_bias(name, k):
+            continue
+        if not bool(r.any()):
+            # behind a transformer's last dense, which starts at 0
+            if bool(gg[k].any()):
+                raise AssertionError(f"{name}: {k} has a gradient where the "
+                                     f"CPU has none")
+            continue
+        err = max(err, float((gg[k] - r).norm() / r.norm()))
+    if not err <= 5e-2:
+        raise AssertionError(f"{name} gradients {what}: largest error {err} "
+                             f"of the norm")
+    return err
+
+
+def registry_card_vs_cpu(name, roots):
+    """One f32 step of ``name`` (forward, ``get_loss``, backward) on the
+    card and on the CPU from the same seeded weights and batch (xyz on a
+    grid, :func:`snap_xyz`), at ``REGISTRY_CHECK_B`` clouds of the
+    recipe's N, held by :func:`_registry_steps_agree`."""
+    b, n, _, _ = REGISTRY[name]
+    b = REGISTRY_CHECK_B.get(name, 8)
+    points, target = registry_batches(name, roots, b, n, 1, seed=1)[0]
+    points = snap_xyz(points)
+    card = _registry_step(name, "cuda", points, target)
+    cpu = _registry_step(name, "cpu", points, target)
+    return dict(b=b, loss=(card[0], cpu[0]),
+                grad_err=_registry_steps_agree(name, card, cpu))
+
+
+# a point of the card's or the CPU's neighbour set, not both, must lie
+# within this of the decision's threshold in float64 (squared distances of
+# clouds in the unit sphere: f32 rounding of |a|^2 + |b|^2 - 2 a.b is near
+# 1e-6, a TF32 matmul's near 1e-3)
+BOUNDARY_GAP = 1e-5
+
+
+def _ball_query_differences(card, cpu):
+    """The groups (centroid and scale) whose neighbour multisets differ
+    between the ball queries ``card`` and ``cpu`` (lists of ``(radii,
+    nsamples, xyz, new_xyz, indices)`` in call order), and in float64
+    the largest distance of a point in only one of the two sets from the
+    threshold that decides it: the squared radius, or the squared
+    distance of the k-th nearest point (for one beyond it) or the
+    (k+1)-th (for one before it); where the nearest point differs, the
+    two nearest points' distances apart."""
+    groups, entries, gap = 0, 0, 0.0
+    for (radii, ks, xyz, new_xyz, ia), (_, _, _, _, ib) in zip(card, cpu):
+        d = ((new_xyz[:, :, None] - xyz[:, None]) ** 2).sum(-1)
+        ranked = d.sort(-1).values
+        for r, k, a, b in zip(radii, ks, ia, ib):
+            unequal = a.sort(-1).values != b.sort(-1).values
+            entries += int(unequal.sum())
+            rows = unequal.any(-1)
+            groups += int(rows.sum())
+            kk = min(k, xyz.shape[1])
+            for bi, si in rows.nonzero().tolist():
+                ga, gb = a[bi, si], b[bi, si]
+                dg = d[bi, si]
+                # the nearest point pads a group: a flip there is a tie of
+                # the two nearest
+                gaps = [float((dg[ga[0]] - dg[gb[0]]).abs())]
+                only = sorted(set(ga.tolist()) ^ set(gb.tolist()))
+                if only:
+                    dj, kth = dg[only], ranked[bi, si, kk - 1]
+                    # outside the k nearest: how far past the k-th; inside:
+                    # how far before the (k+1)-th
+                    beyond = ranked[bi, si, kk] if kk < xyz.shape[1] \
+                        else torch.tensor(float("inf"), dtype=dg.dtype)
+                    rank = torch.where(dj > kth, dj - kth, beyond - dj)
+                    near = torch.minimum((dj - r * r).abs(), rank)
+                    gaps.append(float(near.max()))
+                gap = max(gap, *gaps)
+    return dict(groups=groups, entries=entries, gap=gap)
+
+
+def registry_unsnapped_msg(roots):
+    """The MSG classifier's step of :func:`registry_card_vs_cpu` on the
+    clouds as loaded, off :func:`snap_xyz`'s grid, where a point within
+    a rounding of a radius (or of the k-th nearest distance) falls on
+    either side.  Each ball query's indices are recorded on both devices:
+    :func:`_ball_query_differences` counts the groups that differ and
+    every point in only one set must lie within ``BOUNDARY_GAP`` of its
+    threshold.  The CPU step then runs again on the card's indices and
+    must agree with the card's by :func:`_registry_steps_agree`."""
+    from prifit_torch.nn import pointnet2
+    name = "pointnet2_cls_msg"
+    b, n = REGISTRY_CHECK_B.get(name, 8), REGISTRY[name][1]
+    points, target = registry_batches(name, roots, b, n, 1, seed=1)[0]
+    query = pointnet2.ball_query_nearest_shared
+
+    def step(dev, replay=None):
+        calls = []
+
+        def recorded(radii, nsamples, xyz, new_xyz):
+            out = (query(radii, nsamples, xyz, new_xyz) if replay is None
+                   else [i.to(dev) for i in replay[len(calls)][4]])
+            calls.append((radii, nsamples, xyz.detach().double().cpu(),
+                          new_xyz.detach().double().cpu(),
+                          [i.cpu() for i in out]))
+            return out
+
+        pointnet2.ball_query_nearest_shared = recorded
+        try:
+            return _registry_step(name, dev, points, target), calls
+        finally:
+            pointnet2.ball_query_nearest_shared = query
+
+    card, card_calls = step("cuda")
+    cpu, cpu_calls = step("cpu")
+    diff = _ball_query_differences(card_calls, cpu_calls)
+    if not diff["gap"] <= BOUNDARY_GAP:
+        raise AssertionError(f"{name} ball query card vs cpu: a point "
+                             f"{diff['gap']} from its threshold falls on "
+                             f"either side ({diff})")
+    replayed, _ = step("cpu", replay=card_calls)
+    return dict(b=b, loss=(card[0], cpu[0], replayed[0]), **diff,
+                grad_err=_registry_steps_agree(
+                    name, card, replayed, "card vs cpu on the card's "
+                    "neighbours"))
+
+
+def probe_card_vs_cpu(exp, args):
+    """The probe of the run's ``best_model`` on the card and the CPU: the
+    feature forward (default dtype, bf16 in eval) on 8 test clouds
+    within 2^-6 of the largest pooled feature on the card (four bf16
+    steps of it); then the SVM on the card's features
+    of every cloud fitted on the card and on the CPU in float64: equal
+    test predictions and weights within 1e-6 of their norm, each
+    classifier's."""
+    from prifit_torch.cli import pretrain_partseg, train_partseg
+    from prifit_torch.eval.svm_probe import LinearSVC, \
+        extract_global_features, make_feature_forward
+    from prifit_torch.models import get_module
+    ckpt = torch.load(os.path.join(exp, "checkpoints", "best_model"),
+                      weights_only=False)
+    feats, models = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = train_partseg.build_model(args, get_module(args.model), dev)
+        model.load_state_dict(ckpt["model_state_dict"])
+        models[dev] = make_feature_forward(model)
+    loaders = pretrain_partseg.modelnet_loaders(args, log)
+    first = next(iter(loaders[1]))[0][:8]
+    for dev, fwd in models.items():
+        f = fwd(torch.as_tensor(first, device=dev)).float()
+        feats[dev] = torch.cat([f.amax(1), f.mean(1)], 1).cpu()
+    feat_err = float((feats["cuda"] - feats["cpu"]).abs().max())
+    scale = float(feats["cuda"].abs().max())
+    if not feat_err <= 2.0 ** -6 * scale:
+        raise AssertionError(f"probe features card vs cpu: max abs err "
+                             f"{feat_err} (largest {scale})")
+    (x_tr, y_tr, _), (x_te, _, _) = (
+        extract_global_features(models["cuda"], ld, "cuda") for ld in loaders)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        svm = LinearSVC(args.svm_c).fit(x_tr.to(dev), y_tr.to(dev))
+        pred = svm.predict(x_te.to(dev)).cpu()
+        fits[dev] = (svm, pred, (time.perf_counter() - t0) * 1e3)
+    (sg, pg, ms_g), (sc, pc, ms_c) = fits["cuda"], fits["cpu"]
+    if not torch.equal(pg, pc):
+        raise AssertionError("probe SVM card vs cpu: predictions differ")
+    wg = torch.cat([sg.coef_, sg.intercept_[:, None]], 1).cpu()
+    wc = torch.cat([sc.coef_, sc.intercept_[:, None]], 1)
+    w_err = float(((wg - wc).norm(dim=1) / wc.norm(dim=1)).max())
+    if not w_err <= 1e-6:
+        raise AssertionError(f"probe SVM card vs cpu: weights {w_err} of "
+                             f"their norm apart")
+    return dict(feat_err=feat_err, feat_scale=scale, w_err=w_err,
+                svm_ms=(ms_g, ms_c), newton=(sg.n_iter_, sc.n_iter_),
+                rel_grad=(sg.rel_grad_, sc.rel_grad_), n_train=len(y_tr))
+
+
+def registry_gathers(name, roots):
+    """Every gather table and index of one train-mode forward of ``name``
+    on the card, at its recipe's B and N on its own data: as many calls
+    as ``REGISTRY`` counts a step."""
+    from prifit_torch.ops import sampling
+    b, n, _, expected = REGISTRY[name]
+    points, _ = registry_batches(name, roots, b, n, 1, seed=2)[0]
+    model, _ = registry_model(name, "cuda")
+    rows, calls = sampling.gather_rows, []
+
+    def recorded(t, i):
+        calls.append((t.detach().clone(), i.clone()))
+        return rows(t, i)
+
+    sampling.gather_rows = recorded
+    try:
+        with torch.no_grad():
+            model.train()(torch.as_tensor(points, device="cuda"),
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(2))
+    finally:
+        sampling.gather_rows = rows
+    if len(calls) != expected["gather"]:
+        raise AssertionError(f"{name}: a forward gathered {len(calls)} "
+                             f"tables, not {expected['gather']}")
+    return calls
+
+
+def check_registry_kernels(roots):
+    """FPS and the gather at the registry's shapes, bit for bit against
+    their plain versions: FPS (indices and coordinates, random starts) at
+    the classifiers' sa1 (B=24, 1024 -> 512) and the sem-seg model's four
+    calls (B=16, 4096 -> 1024 -> 256 -> 64 -> 16); the gather at every
+    table and index one forward of each PointNet++ model gives it
+    (:func:`registry_gathers`: the classifiers' sa1 xyz and normals and
+    sa2 projections, the sem-seg model's sa1-sa4 tables and fp4-fp1 3-NN
+    tables).  Times each set beside the plain version, ``torch.gather``
+    and its bound."""
+    from prifit_torch.kernels import fps, gather
+    gen = torch.Generator().manual_seed(21)
+    cgen = torch.Generator(device="cuda").manual_seed(21)
+    out = {"fps": []}
+    for b, chain in ((24, (1024, 512)), (16, (4096, 1024, 256, 64, 16))):
+        x = torch.randn((b, chain[0], 3), generator=gen).cuda()
+        for n, k in zip(chain, chain[1:]):
+            start = torch.randint(0, n, (b,), generator=cgen, device="cuda")
+            got = fps.farthest_point_sample(x, k, start)
+            ref = fps.fps_plain(x, k, start)
+            for g, r, what in zip(got, ref, ("indices", "coordinates")):
+                if not torch.equal(g, r):
+                    raise AssertionError(
+                        f"fps {what} differ at ({b}, {n}) -> {k}: "
+                        f"{int((g != r).sum())} entries")
+            ops = 9 * b * n * (k - 1)
+            byt = nbytes(x, start) + b * k * (8 + 12)
+            out["fps"].append(dict(
+                shape=(b, n, k), launch_shape=fps.launch_shape(n),
+                ms=cuda_ms(lambda: fps.farthest_point_sample(x, k, start),
+                           reps=20),
+                plain_ms=cuda_ms(lambda: fps.fps_plain(x, k, start), reps=2,
+                                 warmup=1),
+                bound=bound_ms(byt, ops)))
+            x = got[1].contiguous()
+
+    out["gather"] = {}
+    for name in ("pointnet2_cls_ssg", "pointnet2_cls_msg",
+                 "pointnet2_sem_seg"):
+        calls = registry_gathers(name, roots)
+        for t, i in calls:
+            if not torch.equal(gather.gather_rows(t, i).view(torch.uint8),
+                               gather.gather_plain(t, i).view(torch.uint8)):
+                raise AssertionError(f"gather differs at {name}'s table "
+                                     f"{tuple(t.shape)} / {tuple(i.shape)}")
+        lib = [(t, i.reshape(i.shape[0], -1, 1).expand(-1, -1, t.shape[-1]))
+               for t, i in calls]
+        byt = sum(nbytes(t, i) + i.numel() * t.shape[-1] * t.element_size()
+                  for t, i in calls)
+        out["gather"][name] = dict(
+            calls=[(tuple(t.shape), tuple(i.shape)) for t, i in calls],
+            ms=cuda_ms(lambda: [gather.gather_rows(t, i) for t, i in calls]),
+            plain_ms=cuda_ms(lambda: [gather.gather_plain(t, i)
+                                      for t, i in calls]),
+            library_ms=cuda_ms(lambda: [torch.gather(t, 1, i)
+                                        for t, i in lib]),
+            bound=bound_ms(byt, 0))
+    return out
+
+
+def registry_phase(kernels):
+    """The registry's other five models and the pretrainer's ModelNet40
+    probe on the card (``registry`` phase), on synthetic trees written
+    from seeds under ``log/`` (removed after): a ModelNet40-layout tree
+    (40 categories of 8 train and 2 test shapes of 2500 points with
+    normals), S3DIS-layout rooms (areas 1-5, 100000 points each) and an
+    ACD tree of ``PROBE_ACD_SHAPES`` shapes beside the ModelNet one.
+
+    - The probe: ``pretrain_partseg.main`` with ``--modelnet_val`` and
+      ``PRETRAIN_FLAGS`` at B=24, N=2048, the default dtype and the
+      recipe's self-sup settings, ``PROBE_EPOCHS`` epochs of 4
+      iterations; each iteration and val batch launches what the
+      pretrainer phase's do, each probe 18 feature-forward batches of
+      ``PROBE_BATCH``; ``metrics.jsonl`` holds each probe's accuracy;
+      then :func:`probe_card_vs_cpu` on its ``best_model``.
+    - Each model: :func:`registry_train` (launches checked every step)
+      and :func:`registry_card_vs_cpu`; the MSG classifier's step also
+      off the grid (:func:`registry_unsnapped_msg`).  The sem-seg models
+      must reach a block accuracy above 0.55 in one of their last 10
+      steps (the JAX package's bar on its room generator,
+      ``tests/test_data.py:492``; 13-class chance is below 0.08).
+    - The kernels at the registry's shapes (:func:`check_registry_kernels`).
+    """
+    import shutil
+    import tempfile
+
+    from prifit_torch.cli import pretrain_partseg, train_partseg
+    from prifit_torch.cli.args_parser import parse_args
+
+    os.makedirs(os.path.join(ROOT, "log"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_registry_",
+                           dir=os.path.join(ROOT, "log"))
+    try:
+        t0 = time.perf_counter()
+        roots = {"modelnet": write_modelnet_tree(
+                     os.path.join(tmp, "modelnet40_normal_resampled")),
+                 "s3dis": write_s3dis_rooms(os.path.join(tmp, "s3dis"))}
+        acd = write_acd_tree(os.path.join(tmp, "acd"), PROBE_ACD_SHAPES)
+        out = {"write_s": time.perf_counter() - t0}
+
+        args = parse_args(TRAINER_FLAGS + PRETRAIN_FLAGS + [
+            "--ss_path", acd, "--experiment_root", os.path.join(tmp, "probe"),
+            "--epoch", str(PROBE_EPOCHS), "--modelnet_val"])
+        run = _pretrain_run(pretrain_partseg, args, kernels)
+        exp = os.path.join(args.experiment_root, "pretrain_"
+                           + train_partseg.experiment_name(args))
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        accs = [line["modelnet_svm_acc"] for line in lines]
+        if accs != [p["accuracy"] for p in run["probes"]] \
+                or len(accs) != PROBE_EPOCHS:
+            raise AssertionError(f"probe metrics {lines}, probes "
+                                 f"{run['probes']}")
+        for i, c in enumerate(run["it_counts"]):
+            _check_counts(c, f"probe run iteration {i}")
+        for i, c in enumerate(run["val_counts"]):
+            _check_counts(c, f"probe run val batch {i}", backward=False)
+        n_batches = sum(-(-n * CLS_CLASSES // B) for n in MODELNET_SPLIT)
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        want.update({k: v * n_batches for k, v in PROBE_BATCH.items()})
+        for i, c in enumerate(run["probe_counts"]):
+            if c != want:
+                raise AssertionError(f"probe {i} launched {c}, not {want}")
+        out["probe"] = run
+        out["probe_check"] = probe_card_vs_cpu(exp, args)
+
+        out["models"] = {}
+        for name in REGISTRY:
+            r = registry_train(name, roots, kernels)
+            if "sem_seg" in name and not max(r["accs"][-10:]) > 0.55:
+                raise AssertionError(f"{name} block accuracy {r['accs']}")
+            r["check"] = registry_card_vs_cpu(name, roots)
+            out["models"][name] = r
+        out["msg_unsnapped"] = registry_unsnapped_msg(roots)
+        out["kernels"] = check_registry_kernels(roots)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def log_registry(reg, smi):
+    run, chk = reg["probe"], reg["probe_check"]
+    log(f"registry: trees written in {reg['write_s']:.1f} s")
+    for e, p in enumerate(run["probes"]):
+        log(f"registry probe epoch {e + 1} (pretrain_partseg --modelnet_val, "
+            f"B={B} N={N}, mxsr): accuracy {p['accuracy']:.4f} (C={p['C']}, "
+            f"train {p['train_accuracy']:.4f}); {p['clouds']} clouds in "
+            f"{p['extract_s'] * 1e3:.1f} ms, {p['clouds'] / p['extract_s']:.1f}"
+            f" clouds/s ({p['load_s'] * 1e3:.1f} ms waiting for batches); SVM "
+            f"{p['svm_ms']:.1f} ms ({p['newton_steps']} Newton steps) [{smi}]")
+    log(f"registry probe run: {_ms(run['walls'])} ms an iteration; launches "
+        f"an iteration {run['it_counts'][-1]}, a probe "
+        f"{run['probe_counts'][-1]}")
+    log(f"registry probe card vs cpu: pooled features (8 clouds, bf16 eval) "
+        f"max abs err {chk['feat_err']:.3g} (largest {chk['feat_scale']:.3g}); "
+        f"SVM on {chk['n_train']} card features: predictions equal, weights "
+        f"{chk['w_err']:.3g} of their norm apart, card {chk['svm_ms'][0]:.1f} "
+        f"ms / cpu {chk['svm_ms'][1]:.1f} ms, Newton steps {chk['newton']}, "
+        f"final gradient {chk['rel_grad']} of the weights [{smi}]")
+    for name, r in reg["models"].items():
+        b, n, steps, _ = REGISTRY[name]
+        c = r["check"]
+        log(f"registry {name} B={b} N={n} ({steps} Adam steps, f32): "
+            f"{_ms(r['walls'][1:])} ms a step ({_spread(r['walls'][1:])}, "
+            f"the first left out); peak memory {r['peak'] / 2**30:.2f} GiB "
+            f"[{smi}]; losses {[round(x, 4) for x in r['losses']]}; accuracy "
+            f"{[round(x, 3) for x in r['accs']]}; launches in the run "
+            f"{ {k: v for k, v in r['counts'].items() if v} }; card vs cpu "
+            f"B={c['b']}: loss {c['loss'][0]:.7f} / {c['loss'][1]:.7f}, "
+            f"largest gradient error {c['grad_err']:.4g} of the norm")
+    u = reg["msg_unsnapped"]
+    log(f"registry pointnet2_cls_msg card vs cpu off the grid, B={u['b']}: "
+        f"loss card {u['loss'][0]:.7f} / cpu {u['loss'][1]:.7f}; ball-query "
+        f"groups that differ {u['groups']} ({u['entries']} indices), "
+        f"largest float64 distance of such a point from its threshold "
+        f"{u['gap']:.3g}; cpu on the card's neighbours: loss "
+        f"{u['loss'][2]:.7f}, largest gradient error {u['grad_err']:.4g} of "
+        f"the norm")
+    k = reg["kernels"]
+    for f in k["fps"]:
+        log(f"registry fps {f['shape'][:2]} -> {f['shape'][2]}, (T, P) = "
+            f"{f['launch_shape']}: bit-equal; kernel_ms {f['ms']:.4f} "
+            f"plain_ms {f['plain_ms']:.4f} bound_ms {f['bound'][0]:.4f} "
+            f"({f['bound'][1]}) [{smi}]")
+    for name, g in k["gather"].items():
+        log(f"registry gather, {name}'s forward, tables {g['calls']}: "
+            f"bit-equal; "
+            f"kernel_ms {g['ms']:.4f} plain_ms {g['plain_ms']:.4f} "
+            f"library_ms {g['library_ms']:.4f} bound_ms {g['bound'][0]:.4f} "
+            f"[{smi}]")
+
+
 EXTRA_KEYS = ("sparse", "inputs", "device_ms", "int32_ms", "bound_f32_ms",
-              "equal_rows_ms", "per_call_ms", "us_per_step", "launch_shapes")
+              "equal_rows_ms", "per_call_ms", "us_per_step", "launch_shapes",
+              "registry")
 # what each kernel phase times
 CALLS_OF = {"mean_shift_bwd": "one self-sup step",
             "max_bwd_cnt_gsm": "one mxsr train step",
@@ -2830,6 +3520,10 @@ def main():
     log_pretrainer(pre, smi)
     models = models_phase(kernels)
     log_models(models, smi)
+    reg = registry_phase(kernels)
+    log_registry(reg, smi)
+    results["fps"]["registry"] = reg["kernels"]["fps"]
+    results["gather"]["registry"] = reg["kernels"]["gather"]
     tc = train_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
         f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
@@ -2898,6 +3592,9 @@ def main():
     paths["extra_layers"] = pre["extra_layers"]["counts"]
     paths["reconstruct"] = pre["reconstruct"]["counts"]
     paths.update({f"model_{name}": r["counts"] for name, r in models.items()})
+    paths["probe"] = _sum_counts(reg["probe"]["probe_counts"])
+    paths.update({f"model_{name}": r["counts"]
+                  for name, r in reg["models"].items()})
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]

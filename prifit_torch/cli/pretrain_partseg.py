@@ -24,10 +24,15 @@ The pretrainer's ``best_model`` warm-starts the part-seg trainer:
 ``python -m prifit_torch.cli.train_partseg --pretrained_model
 <run>/checkpoints/best_model ...``.
 
-Not ported: the ``--modelnet_val`` probe (a ModelNet40 loader and a
-linear SVM) raises ``NotImplementedError`` where a ModelNet tree exists
-and is skipped with a log line where none does, as the JAX pretrainer
-skips it (ROADMAP.md §1 item 4); multi-process sharding (§1 item 5).
+``--modelnet_val``: where a ModelNet40 tree lies beside the ACD one
+(``<dirname of --ss_path>/modelnet40_normal_resampled``), each epoch ends
+with the linear-SVM probe of :mod:`prifit_torch.eval.svm_probe` on the
+frozen model's pooled ``feat`` (``--svm_c``, ``--cross_val_svm``), its
+test accuracy in ``metrics.jsonl`` as ``modelnet_svm_acc`` and the
+tensorboard scalar ``modelnet_val``; where none does, the probe is
+skipped with a log line, as the JAX pretrainer skips it.
+
+Not ported: multi-process sharding (ROADMAP.md §1 item 5).
 
 Usage:
   python -m prifit_torch.cli.pretrain_partseg \\
@@ -55,9 +60,11 @@ from prifit_torch.cli.train_partseg import (
 from prifit_torch.data import (
     ACDSelfSupDataset,
     DataLoader,
+    ModelNetDataLoader,
     prefetch_to_device,
     provider,
 )
+from prifit_torch.eval.svm_probe import make_feature_forward, svm_probe
 from prifit_torch.models import get_module
 from prifit_torch.train.checkpoint import save_checkpoint
 from prifit_torch.train.schedules import bn_momentum_schedule, lr_schedule
@@ -103,19 +110,40 @@ def acd_split(args):
     return ss_train, ss_val
 
 
-def check_modelnet_val(args, log) -> None:
-    """``--modelnet_val``: log and skip where there is no ModelNet40 tree
-    beside the ACD one, as the JAX pretrainer does; raise where there is
-    one, since the probe is not ported."""
+def modelnet_loaders(args, log):
+    """``--modelnet_val``: the probe's ModelNet40 ``(train, test)``
+    loaders (``--npoint`` points, ``--normal``, all shapes at
+    ``--batch_size``) of the tree beside the ACD one, or None, with a log
+    line, where there is none (``pretrain:97-119`` of the JAX
+    pretrainer)."""
     if not args.modelnet_val:
-        return
+        return None
     mn_root = osp.join(osp.dirname(args.ss_path),
                        "modelnet40_normal_resampled")
-    if osp.isdir(mn_root):
-        raise NotImplementedError(
-            f"--modelnet_val: the ModelNet40 SVM probe ({mn_root}) is not "
-            f"ported yet (ROADMAP.md §1 item 4)")
-    log(f"--modelnet_val: no dataset at {mn_root}; skipping probe")
+    if not osp.isdir(mn_root):
+        log(f"--modelnet_val: no dataset at {mn_root}; skipping probe")
+        return None
+    return tuple(
+        DataLoader(ModelNetDataLoader(mn_root, npoint=args.npoint,
+                                      split=split,
+                                      normal_channel=args.normal),
+                   args.batch_size, drop_last=False)
+        for split in ("train", "test"))
+
+
+def modelnet_probe(model, loaders, args, device, log) -> dict:
+    """The linear-SVM probe of ``model``'s frozen ``feat`` on the
+    ModelNet40 ``loaders``, logged with its feature-extraction rate and
+    its SVM time."""
+    probe = svm_probe(make_feature_forward(model),
+                      *loaders, svm_c=args.svm_c,
+                      cross_val=args.cross_val_svm, device=device)
+    log(f"ModelNet40 SVM probe: acc {probe['accuracy']:.4f} "
+        f"(C={probe['C']}); {probe['clouds']} clouds embedded at "
+        f"{probe['clouds'] / probe['extract_s']:.1f} clouds/s "
+        f"({probe['load_s']:.2f} s of {probe['extract_s']:.2f} s loading), "
+        f"SVM {probe['svm_ms']:.1f} ms")
+    return probe
 
 
 def convex_flags(args) -> dict:
@@ -208,13 +236,16 @@ def validation_loss(model, mod, loader, args, rng, generator, device,
     return float(np.mean(losses)) if losses else float("inf")
 
 
-def main(args, device=None, on_iteration=None, on_val_batch=None):
+def main(args, device=None, on_iteration=None, on_val_batch=None,
+         on_probe=None):
     """Pretrain as ``args`` say; returns the best validation loss.
 
     ``device``: CUDA unless a caller names another (raises without a
     GPU).  ``on_iteration(epoch, i)`` and ``on_val_batch(epoch, vi)``,
     when given, are called after each train step and each validation
-    batch (timing hooks)."""
+    batch (timing hooks), and ``on_probe(epoch, probe)`` after each
+    ModelNet40 probe with :func:`~prifit_torch.eval.svm_probe.svm_probe`'s
+    result."""
     device = resolve_device(device)
     check_supported(args)
     exp_dir = osp.join(args.experiment_root,
@@ -223,7 +254,7 @@ def main(args, device=None, on_iteration=None, on_val_batch=None):
     os.makedirs(ckpt_dir, exist_ok=True)
     log = setup_logger("pretrain", osp.join(exp_dir, "pretrain.log"))
     log(f"PARAMETERS: {vars(args)}")
-    check_modelnet_val(args, log)
+    probe_loaders = modelnet_loaders(args, log)
 
     rng = np.random.default_rng(args.seed)
     ss_train, ss_val = acd_split(args)
@@ -296,9 +327,16 @@ def main(args, device=None, on_iteration=None, on_val_batch=None):
             save_checkpoint(ckpt_dir, "best_model", epoch=epoch, state=state,
                             extra=extra)
             log(f"New best val loss {val_loss:.5f}; saved best_model")
+        epoch_metrics = {"epoch": epoch, "train_loss": train_loss,
+                         "val_loss": val_loss, "lr": lr}
+        if probe_loaders is not None:
+            probe = modelnet_probe(model, probe_loaders, args, device, log)
+            epoch_metrics["modelnet_svm_acc"] = probe["accuracy"]
+            tb.scalar("modelnet_val", probe["accuracy"], epoch)
+            if on_probe is not None:
+                on_probe(epoch, probe)
         with open(metrics_path, "a") as f:
-            f.write(json.dumps({"epoch": epoch, "train_loss": train_loss,
-                                "val_loss": val_loss, "lr": lr}) + "\n")
+            f.write(json.dumps(epoch_metrics) + "\n")
         tb.flush()
     tb.close()
     return best_val

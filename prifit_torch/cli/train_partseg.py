@@ -30,8 +30,9 @@ Under ``--selfsup`` a model with no convex loss (SSG, PointNet,
 reconstruction) takes the self-sup step with a zero loss, as the JAX
 trainer does: Adam's weight decay and the batch-norm statistics still
 move.  Not ported yet, and refused with ``NotImplementedError``:
-``--sp_points`` above 1 (ROADMAP.md §1 item 5) and the classification
-and semantic-segmentation models (§1 item 4).  ``--pretrained_model``
+``--sp_points`` above 1 (ROADMAP.md §1 item 5).  The classification and
+semantic-segmentation models of the registry are refused with a
+``TypeError``, as the JAX trainer fails on them.  ``--pretrained_model``
 takes the pretrainer's checkpoints
 (:mod:`prifit_torch.cli.pretrain_partseg`) as well as this trainer's.
 
@@ -65,7 +66,7 @@ from prifit_torch.data import (
 )
 from prifit_torch.entry import init_weights
 from prifit_torch.eval.miou import evaluation, make_eval_forward
-from prifit_torch.models import get_module
+from prifit_torch.models import PART_SEG, get_module
 from prifit_torch.train.checkpoint import (
     restore_checkpoint,
     restore_params_only,
@@ -123,12 +124,18 @@ def experiment_name(args) -> str:
 
 def check_supported(args) -> None:
     """Raise ``NotImplementedError`` for the flags the port cannot run
-    yet, naming the ROADMAP.md item that ports them."""
+    yet, naming the ROADMAP.md item that ports them, and ``TypeError``
+    for a registry model that is not a part-seg model: the JAX trainer
+    passes those part-seg arguments, which they do not take."""
     if args.sp_points > 1:
         raise NotImplementedError(
             f"--sp_points {args.sp_points}: point-axis parallelism is not "
             f"ported yet (ROADMAP.md §1 item 5)")
-    get_module(args.model)
+    if get_module(args.model).__name__.rsplit(".", 1)[1] not in PART_SEG:
+        raise TypeError(
+            f"--model {args.model}: the trainers build part-seg models "
+            f"({', '.join(PART_SEG)}); {args.model} takes no part count "
+            f"or category one-hot")
 
 
 def build_model(args, mod, device):

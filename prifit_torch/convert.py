@@ -42,6 +42,21 @@ It serves the trainer's other models too, read from the tree as well:
   has no bias, is ``embed``;
 - ``reconstruction``: the MSG rows without ``extra_conv_emb`` (and no
   ``beta``), with AtlasNet.
+
+And the registry's other five models:
+
+- ``pointnet2_cls_ssg`` / ``pointnet2_cls_msg``: the SSG or MSG SA rows
+  (the MSG classifier's sa2 widths are its own), sa3's ``PointMLP_0``,
+  and the head ``fc1..3`` (``nn.Linear``) and ``bn1..2``;
+- ``pointnet2_sem_seg``: four SSG SA layers (``sa1..4``, each grouped
+  first layer xyz first, sa1's features the whole input), ``fp4..1``,
+  ``conv1..2`` and ``bn1``;
+- ``pointnet_cls`` / ``pointnet_sem_seg``: the encoder ``feat``
+  (``STN_0``/``STN_1`` as ``feat.stn``/``feat.fstn``, ``Dense_0..2`` and
+  ``BatchNorm_0..2`` as ``feat.conv1..3``/``feat.bn1..3``), then
+  ``fc1..3`` (``nn.Linear``) and ``bn1..2``, or ``conv1..4`` and
+  ``bn1..3``.  Their input width is the JAX model's
+  (:func:`input_channels`).
 """
 
 import numpy as np
@@ -59,20 +74,28 @@ EXTRA_BNS = ("conv1_embed_bn", "conv2_embed_bn")
 ATLAS = ("atlasnet", "VmapPointGenCon_0")
 
 
+def _msg_rows(name: str, mlps):
+    """Rows of an MSG SA layer ``name`` with the scales' widths ``mlps``:
+    a grouped first layer a scale (features first), then its
+    ``PointMLP_{i}``'s rows."""
+    rows = []
+    for i, mlp in enumerate(mlps):
+        rows.append((f"{name}.conv_blocks.{i}.0", f"{name}.bn_blocks.{i}.0",
+                     "gfl", (name, f"GroupedFirstLayer_{i}"), False))
+        for j in range(1, len(mlp)):
+            rows.append((f"{name}.conv_blocks.{i}.{j}",
+                         f"{name}.bn_blocks.{i}.{j}",
+                         "mlp", (name, f"PointMLP_{i}"), j - 1))
+    return rows
+
+
 def _entries(extra_layers: bool = False, atlasnet: bool = False,
              embed: bool = True):
     """(torch conv prefix, torch bn prefix, kind, flax path, aux) rows of
     the MSG models (``embed``: with ``extra_conv_emb``)."""
     rows = []
     for name, mlps in SA_CFG:
-        for i, mlp in enumerate(mlps):
-            rows.append((f"{name}.conv_blocks.{i}.0",
-                         f"{name}.bn_blocks.{i}.0",
-                         "gfl", (name, f"GroupedFirstLayer_{i}"), False))
-            for j in range(1, len(mlp)):
-                rows.append((f"{name}.conv_blocks.{i}.{j}",
-                             f"{name}.bn_blocks.{i}.{j}",
-                             "mlp", (name, f"PointMLP_{i}"), j - 1))
+        rows += _msg_rows(name, mlps)
     rows += _mlp_rows("sa3", 3)
     for name in FP_NAMES:
         rows += _mlp_rows(name, 0 if extra_layers and name == "fp1" else 2)
@@ -96,18 +119,48 @@ def _mlp_rows(name: str, n: int, first: int = 0):
              (name, "PointMLP_0"), j - first) for j in range(first, n)]
 
 
+def _ssg_rows(name: str):
+    """Rows of a single-scale SA layer ``name`` of three widths: its
+    grouped first layer (xyz first), then ``PointMLP_0``'s two."""
+    return [(f"{name}.mlp_convs.0", f"{name}.mlp_bns.0", "gfl",
+             (name, "GroupedFirstLayer_0"), True)] \
+        + _mlp_rows(name, 3, first=1)
+
+
+def _head_rows(*names, kind="dense"):
+    return [(nm, None, "bn" if nm.startswith("bn") else kind, (nm,), None)
+            for nm in names]
+
+
 def _ssg_entries():
     """Rows of ``pointnet2_part_seg_ssg``."""
-    rows = []
-    for name in ("sa1", "sa2"):
-        rows.append((f"{name}.mlp_convs.0", f"{name}.mlp_bns.0", "gfl",
-                     (name, "GroupedFirstLayer_0"), True))
-        rows += _mlp_rows(name, 3, first=1)
+    rows = _ssg_rows("sa1") + _ssg_rows("sa2")
     rows += _mlp_rows("sa3", 3) + _mlp_rows("fp3", 2) + _mlp_rows("fp2", 2) \
         + _mlp_rows("fp1", 3)
-    return rows + [("conv1", None, "dense", ("conv1",), None),
-                   ("conv2", None, "dense", ("conv2",), None),
-                   ("bn1", None, "bn", ("bn1",), None)]
+    return rows + _head_rows("conv1", "conv2", "bn1")
+
+
+def _cls_entries(msg: bool):
+    """Rows of ``pointnet2_cls_msg`` (``msg``) or ``pointnet2_cls_ssg``:
+    the SA layers, then the head's ``nn.Linear`` ``fc1..3`` and ``bn1..2``."""
+    if msg:
+        rows = _msg_rows("sa1", [[32, 32, 64], [64, 64, 128], [64, 96, 128]]) \
+            + _msg_rows("sa2", [[64, 64, 128], [128, 128, 256],
+                                [128, 128, 256]])
+    else:
+        rows = _ssg_rows("sa1") + _ssg_rows("sa2")
+    return rows + _mlp_rows("sa3", 3) + _head_rows(
+        "fc1", "bn1", "fc2", "bn2", "fc3", kind="linear")
+
+
+def _sem_seg_entries():
+    """Rows of ``pointnet2_sem_seg``."""
+    rows = []
+    for name in ("sa1", "sa2", "sa3", "sa4"):
+        rows += _ssg_rows(name)
+    for name, n in (("fp4", 2), ("fp3", 2), ("fp2", 2), ("fp1", 3)):
+        rows += _mlp_rows(name, n)
+    return rows + _head_rows("conv1", "bn1", "conv2")
 
 
 def _stn_entries(name: str):
@@ -117,6 +170,31 @@ def _stn_entries(name: str):
                 None) for j in range(3, 6)]
             + [(f"{name}.bn{j + 1}", None, "bn", (name, f"BatchNorm_{j}"),
                 None) for j in range(5)])
+
+
+def _encoder_entries(feature_transform: bool):
+    """Rows of a ``PointNetEncoder`` named ``feat``: ``STN_0`` (``stn``),
+    ``Dense_0..2`` and ``BatchNorm_0..2`` (``conv1..3``, ``bn1..3``), and
+    with the feature transform ``STN_1`` (``fstn``)."""
+    rows = [(f"feat.conv{j + 1}", None, "dense", ("feat", f"Dense_{j}"),
+             None) for j in range(3)]
+    rows += [(f"feat.bn{j + 1}", None, "bn", ("feat", f"BatchNorm_{j}"),
+              None) for j in range(3)]
+    for stn, path in (("stn", "STN_0"),) + ((("fstn", "STN_1"),)
+                                           if feature_transform else ()):
+        rows += [(f"feat.{r[0]}", None, r[2], ("feat", path) + r[3][1:],
+                  r[4]) for r in _stn_entries(stn)]
+    return rows
+
+
+def _pointnet_cls_entries(cls: bool):
+    """Rows of ``pointnet_cls`` (``cls``) or ``pointnet_sem_seg``."""
+    rows = _encoder_entries(True)
+    if cls:
+        return rows + _head_rows("fc1", "bn1", "fc2", "bn2", "fc3",
+                                 kind="linear")
+    return rows + _head_rows("conv1", "bn1", "conv2", "bn2", "conv3", "bn3",
+                             "conv4")
 
 
 def _pointnet_entries():
@@ -157,6 +235,12 @@ def _model_entries(params):
         return _dgcnn_entries()
     if "stn" in params:
         return _pointnet_entries()
+    if "feat" in params:
+        return _pointnet_cls_entries(cls="fc1" in params)
+    if "fc1" in params:
+        return _cls_entries(msg="GroupedFirstLayer_1" in params["sa1"])
+    if "sa4" in params:
+        return _sem_seg_entries()
     if "GroupedFirstLayer_1" not in params["sa1"]:
         return _ssg_entries()
     return _entries(extra_layers="fp1_conv1" in params,
@@ -183,11 +267,9 @@ def _conv(w2, conv2d: bool):
 def state_dict_from_jax(variables) -> dict:
     """``{"params": ..., "batch_stats": ..., "selfsup_state": ...}``
     nested dicts of arrays of a JAX part-seg model -> the port's
-    state_dict (torch f32 tensors): ``pointnet2_part_seg_msg`` (with or
-    without ``extra_layers`` and ``reconstruct``),
-    ``pretrain_pointnet2_part_seg_msg``, ``pointnet2_part_seg_ssg``,
-    ``pointnet_part_seg``, ``dgcnn`` or ``reconstruction``, read from
-    the parameter tree.  For the models with the self-sup
+    state_dict (torch f32 tensors): any of the eleven registry models
+    (``pointnet2_part_seg_msg`` with or without ``extra_layers`` and
+    ``reconstruct``), read from the parameter tree.  For the models with the self-sup
     ``extra_conv_emb``, the entropy weight ``selfsup_state["beta"]``
     becomes ``beta``; without a ``selfsup_state`` it is 1.0, as at the
     JAX model's init."""
@@ -197,6 +279,18 @@ def state_dict_from_jax(variables) -> dict:
         beta = variables.get("selfsup_state", {}).get("beta", 1.0)
         sd["beta"] = torch.tensor(np.asarray(beta, np.float32))
     return sd
+
+
+def input_channels(variables) -> int:
+    """The input width of a JAX ``pointnet_cls``, ``pointnet_sem_seg`` or
+    ``pointnet2_sem_seg`` model, read from its first kernel: those JAX
+    models size their first layer from the input they are initialized
+    on, the port's from ``channel`` (or ``with_rgb``/``normal_channel``),
+    so the port's model must be built for this width."""
+    params = variables["params"]
+    if "feat" in params:
+        return _tree(params, ("feat", "STN_0", "Dense_0", "kernel")).shape[0]
+    return _tree(params, ("sa1", "GroupedFirstLayer_0", "w_feat")).shape[0]
 
 
 def params_from_jax(params) -> dict:
@@ -238,7 +332,7 @@ def _convert(params, stats, rows=None) -> dict:
             j = aux
             sd[f"{conv}.weight"] = _conv(
                 _get(params, path + (f"w{j}",)),
-                conv.startswith(("sa1.", "sa2.", "sa3.")))
+                conv.startswith(("sa1.", "sa2.", "sa3.", "sa4.")))
             sd[f"{conv}.bias"] = _get(params, path + (f"b{j}",))
             bn(bnp, path, f"bn{j}_scale", f"bn{j}_bias", f"bn{j}_mean",
                f"bn{j}_var")

@@ -3,12 +3,15 @@
 ``get_module`` keeps the JAX package's registry rule
 (``prifit_tpu/models/__init__.py``): a name is one of ``MODEL_NAMES``, and
 any name containing ``"dgcnn"`` means ``dgcnn``; an unknown name raises
-``ValueError``.  Ported are the six part-seg models the JAX trainers
-build: ``pointnet2_part_seg_msg`` (with its ``extra_layers`` and
-``reconstruct`` variants), ``pretrain_pointnet2_part_seg_msg``,
-``pointnet2_part_seg_ssg``, ``pointnet_part_seg``, ``dgcnn`` and
-``reconstruction``.  The classification and semantic-segmentation names
-raise ``NotImplementedError`` (ROADMAP.md §1 item 4).
+``ValueError``.  Every name is ported: the six part-seg models the JAX
+trainers build (``pointnet2_part_seg_msg`` with its ``extra_layers`` and
+``reconstruct`` variants, ``pretrain_pointnet2_part_seg_msg``,
+``pointnet2_part_seg_ssg``, ``pointnet_part_seg``, ``dgcnn``,
+``reconstruction``), the ModelNet40 classifiers (``pointnet_cls``,
+``pointnet2_cls_ssg``, ``pointnet2_cls_msg``) and the S3DIS
+semantic-segmentation models (``pointnet_sem_seg``,
+``pointnet2_sem_seg``).  The last five take no category one-hot and
+return ``(log-probs, aux)`` tuples, as their JAX models do.
 """
 
 import importlib
@@ -16,9 +19,14 @@ import importlib
 from prifit_torch.models import (
     common,
     dgcnn,
+    pointnet2_cls_msg,
+    pointnet2_cls_ssg,
     pointnet2_part_seg_msg,
     pointnet2_part_seg_ssg,
+    pointnet2_sem_seg,
+    pointnet_cls,
     pointnet_part_seg,
+    pointnet_sem_seg,
     pretrain_pointnet2_part_seg_msg,
     reconstruction,
 )
@@ -41,9 +49,11 @@ MODEL_NAMES = (
     "dgcnn",
     "reconstruction",
 )
-PORTED = ("pointnet2_part_seg_msg", "pretrain_pointnet2_part_seg_msg",
-          "pointnet2_part_seg_ssg", "pointnet_part_seg", "dgcnn",
-          "reconstruction")
+# the models the part-seg trainers build; the others take no category
+# one-hot and return tuples
+PART_SEG = ("pointnet2_part_seg_msg", "pretrain_pointnet2_part_seg_msg",
+            "pointnet2_part_seg_ssg", "pointnet_part_seg", "dgcnn",
+            "reconstruction")
 
 
 def get_module(name: str):
@@ -52,15 +62,13 @@ def get_module(name: str):
         name = "dgcnn"
     if name not in MODEL_NAMES:
         raise ValueError(f"unknown model {name!r}; one of {MODEL_NAMES}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md §1 item 4); "
-            f"ported: {PORTED}")
     return importlib.import_module(f"prifit_torch.models.{name}")
 
 
-__all__ = ["MODEL_NAMES", "PORTED", "common", "dgcnn", "get_module",
+__all__ = ["MODEL_NAMES", "PART_SEG", "common", "dgcnn",
+           "get_module", "pointnet2_cls_msg", "pointnet2_cls_ssg",
            "pointnet2_part_seg_msg", "pointnet2_part_seg_ssg",
-           "pointnet_part_seg", "pretrain_pointnet2_part_seg_msg",
+           "pointnet2_sem_seg", "pointnet_cls", "pointnet_part_seg",
+           "pointnet_sem_seg", "pretrain_pointnet2_part_seg_msg",
            "reconstruction", "SegOutput", "nll_loss",
            "pairwise_contrastive_loss"]

@@ -16,6 +16,7 @@ import functools
 import json
 import os
 import os.path as osp
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from prifit_tpu.data import DataLoader as JDataLoader
 from prifit_tpu.models import get_module
 from test_torch_grad import align_eigh_signs, jax_eigh
 from test_torch_train import jax_variables, with_xyz_gain
+from tests.fixtures import make_modelnet_fixture
 
 torch.set_num_threads(1)
 
@@ -393,18 +395,30 @@ def test_finetune_warm_starts_from_pretrain(acd_small, tmp_path):
             assert "fp1.mlp_convs.0.weight" not in got
 
 
-def test_modelnet_val_skips_or_raises(acd, tmp_path):
+def test_modelnet_val_skips_or_raises(acd_small, tmp_path):
+    """``--modelnet_val``: skipped with a log line where no ModelNet40
+    tree lies beside the ACD one, as the JAX pretrainer skips it; with a
+    tree (a fixture one), the epoch ends with the probe, which the log
+    reports and ``metrics.jsonl`` holds as ``modelnet_svm_acc`` (it
+    raised before the probe was ported)."""
     logs = []
-    args = _args(acd, "--modelnet_val")
-    P.check_modelnet_val(args, logs.append)
+    assert P.modelnet_loaders(_args(acd_small, "--modelnet_val"),
+                              logs.append) is None
     assert "skipping probe" in logs[0]
-    os.makedirs(osp.join(osp.dirname(acd), "modelnet40_normal_resampled"))
+    mn = osp.join(osp.dirname(acd_small), "modelnet40_normal_resampled")
+    make_modelnet_fixture(mn, n_classes=3, n_per_class=3, n_points=64)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            P.main(_args(acd, "--modelnet_val", "--experiment_root",
-                         str(tmp_path)), device="cpu")
+        _, _, lines, log = _run(parse_args([
+            "--model", "pretrain_pointnet2_part_seg_msg", "--epoch", "1",
+            "--batch_size", "2", "--npoint", "48", "--chamfer_npoints",
+            "96", "--ss_path", acd_small, "--encoder_dtype", "f32",
+            "--modelnet_val", "--experiment_root", str(tmp_path), *SS]))
     finally:
-        os.rmdir(osp.join(osp.dirname(acd), "modelnet40_normal_resampled"))
+        shutil.rmtree(mn)
+    assert set(lines[0]) == {"epoch", "train_loss", "val_loss", "lr",
+                             "modelnet_svm_acc"}
+    assert 0.0 <= lines[0]["modelnet_svm_acc"] <= 1.0
+    assert "ModelNet40 SVM probe: acc" in log and "9 clouds" in log
 
 
 def test_main_raises_without_a_gpu(acd, tmp_path, monkeypatch):

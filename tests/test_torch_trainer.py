@@ -8,9 +8,10 @@ the default encoder dtype and its resume (``epoch``, ``step`` and the
 self-sup ``beta`` restored), a contrastive epoch, a ``--fused_augment``
 epoch, an ``--init_cls`` warm start from a saved checkpoint (with the
 classifier re-init cut to one epoch) and epochs of the ``--extra_layers``
-and ``--reconstruct`` variants.  The flags the port cannot run yet (the
-classification and semantic-segmentation models among them) raise
-``NotImplementedError``; the trainer's other part-seg models are run by
+and ``--reconstruct`` variants.  The flags the port cannot run yet raise
+``NotImplementedError``, and the registry's classification and
+semantic-segmentation models a ``TypeError`` (the trainer builds
+part-seg models); the trainer's other part-seg models are run by
 ``test_torch_trainer_models.py``.
 """
 
@@ -173,14 +174,18 @@ def test_train_init_class_touches_only_conv2(roots):
             assert torch.equal(v, before[k]), k
 
 
-@pytest.mark.parametrize("extra,match", [
-    (("--sp_points", "2"), "item 5"),
-    (("--model", "pointnet_cls"), "item 4"),
-    (("--model", "pointnet2_cls_msg"), "item 4"),
-    (("--model", "pointnet2_sem_seg"), "item 4"),
+@pytest.mark.parametrize("extra,error,match", [
+    (("--sp_points", "2"), NotImplementedError, "item 5"),
+    (("--model", "pointnet_cls"), TypeError, "part-seg models"),
+    (("--model", "pointnet2_cls_msg"), TypeError, "part-seg models"),
+    (("--model", "pointnet2_sem_seg"), TypeError, "part-seg models"),
 ])
-def test_unported_flags_raise(roots, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_raise(roots, tmp_path, extra, error, match):
+    """``--sp_points`` above 1 is not ported; the classification and
+    sem-seg models are, but the trainer builds part-seg models only and
+    refuses them with a ``TypeError``, as the JAX trainer's
+    ``build_model`` fails on their constructors."""
+    with pytest.raises(error, match=match):
         T.main(_args(roots, tmp_path, "--selfsup", *extra), device="cpu")
     assert not os.listdir(tmp_path)
 
