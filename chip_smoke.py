@@ -89,6 +89,28 @@ counts set to 0 just before it and read just after:
     the gather bit for bit at the registry's shapes (FPS 1024 -> 512 at
     B=24 and 4096 -> 1024 -> 256 -> 64 -> 16 at B=16; the gather at every
     table one forward of each PointNet++ model gives it).
+  - the fitting demo (``fitting`` phase, ``fitting_phase``):
+    ``prifit_torch.cli.fitting.main`` at the JAX defaults (B=16 scenes of
+    3 ellipsoids of 500 points, 8-wide embeddings, quantile 0.01, 20
+    mean-shift steps, 8 slots, 256 samples a primitive), 3 timed calls
+    with exact launches (bandwidth 1, mean-shift 20 forward and 20
+    backward, NMS 3 a call; the backward's cotangents live in at most 8
+    rows a shape), the fitted axes within the JAX package's limits, the
+    card against the CPU, and the four clustering kernels at its shapes.
+  - the library surface (``library`` phase): the chamfer family,
+    ``lstsq``, ``cluster_single`` (gaussian and epanechnikov, launches
+    exact), ``compute_bandwidth``, the viz exporters and ``StepTimer``,
+    card against CPU.
+  - the encoder dtypes (``dtypes`` phase, ``dtype_phase``):
+    ``--encoder_dtype`` ``bf16``, ``sa_bf16`` and ``mx`` and
+    ``--stage_dtypes`` all-stage ``fq``, all-stage ``q`` and
+    ``sa1:bf16,fp2:q``, the supervised and the self-sup step of each at
+    B=24, N=2048 (a warm-up and 3 timed, launches exact: the K-max pair 6
+    times a step under ``mx`` only, ``sr_bf16`` never), and one B=2
+    supervised step each card against CPU within twice the CPU's own
+    spread; and in the trainer phase an 8-iteration ``train_partseg``
+    run with ``--encoder_dtype mx`` (the K-max pair 12 times an
+    iteration, ``sr_bf16`` never).
 
 It checks that every kernel was launched by the paths that run it, and
 no other, and that every cotangent the mean-shift backward gets on the
@@ -124,7 +146,9 @@ It prints:
   - the pretrainer's ms per iteration beside the bare self-sup step and
     per val batch, with the launches of each;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the twenty-three paths (and their sum; ``trainer`` is the whole first
+    the thirty-two paths (and their sum; ``fitting``, ``library`` and
+    ``dtype_<mode>`` are those phases' runs, ``trainer_mx`` the trainer's
+    ``--encoder_dtype mx`` run, ``trainer`` the whole first
     trainer run with its eval, ``pretrainer`` and ``pretrain_val`` the
     pretrain run's iterations and val batches, ``extra_layers`` and
     ``reconstruct`` those trainer runs, ``model_<name>`` the ``models``
@@ -146,7 +170,9 @@ It prints:
     device-only time (``device_ms``), device microseconds a step
     (``us_per_step``) and ``(T, P)`` (``launch_shapes``); FPS's and the
     gather's rows also their times at the registry's shapes
-    (``registry``);
+    (``registry``); the four clustering kernels' rows their numbers at
+    the fitting demo's shapes (``fitting``) and the K-max pair's those of
+    one ``mx`` step (``mx``);
   - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without that line.
@@ -850,8 +876,9 @@ def check_max_bwd():
     bit-equal (the kernels round each product and difference as the
     plain version does, and take the same hash bits); also at SSG's sa1
     region (``SSG_MAX_BWD_SHAPES``).  Times the six calls of one MSG
-    ``mxsr`` step of each; no single PyTorch call computes either
-    function."""
+    ``mxsr`` step of each, and under ``"mx"`` those of one ``mx`` step
+    (rounding off, an f32 cotangent); no single PyTorch call computes
+    either function."""
     from prifit_torch.kernels import max_bwd
     gen = torch.Generator(device="cuda").manual_seed(7)
     timed = {}
@@ -877,10 +904,9 @@ def check_max_bwd():
                     f"max_bwd_dz differs from its plain version at {shape}, "
                     f"sr={sr}: {int((_bits(dz) != _bits(dz_p)).sum())} of "
                     f"{dz.numel()} elements")
-            if sr and shape in MAX_BWD_SHAPES:
-                timed[shape] = (args, dargs, cnt, gsm, dz)
+            if shape in MAX_BWD_SHAPES:
+                timed.setdefault(sr, []).append((args, dargs, cnt, gsm, dz))
             del x, cnt_p, gsm_p, dz_p
-    calls = list(timed.values())
     out = {}
     for name, fn, plain, reads, writes in (
             ("max_bwd_cnt_gsm", lambda c: max_bwd.cnt_gsm(*c[0]),
@@ -889,16 +915,22 @@ def check_max_bwd():
             ("max_bwd_dz", lambda c: max_bwd.dz(*c[1]),
              lambda c: max_bwd.dz_plain(*c[1]),
              lambda c: c[1][:7], lambda c: (c[4],))):
-        ms = cuda_ms(lambda: [fn(c) for c in calls])
-        plain_ms = cuda_ms(lambda: [plain(c) for c in calls], reps=3)
-        # each input read once, each output written once; the f32
-        # arithmetic (a compare per element for pass 1, six flops per
-        # element for pass 2) is far below the byte time
-        byt = sum(nbytes(*reads(c), *writes(c)) for c in calls)
-        per_elem = 1 if name == "max_bwd_cnt_gsm" else 6
-        ops = sum(per_elem * c[0][0].numel() for c in calls)
-        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         library_ms=None, bound=bound_ms(byt, ops))
+        for sr, calls in timed.items():
+            ms = cuda_ms(lambda: [fn(c) for c in calls])
+            plain_ms = cuda_ms(lambda: [plain(c) for c in calls], reps=3)
+            # each input read once, each output written once; the f32
+            # arithmetic (a compare per element for pass 1, six flops per
+            # element for pass 2) is far below the byte time
+            byt = sum(nbytes(*reads(c), *writes(c)) for c in calls)
+            per_elem = 1 if name == "max_bwd_cnt_gsm" else 6
+            ops = sum(per_elem * c[0][0].numel() for c in calls)
+            r = dict(ms=ms, plain_ms=plain_ms, bound=bound_ms(byt, ops))
+            if sr:
+                out[name] = dict(max_abs_err=0.0, library_ms=None, **r)
+            else:
+                out[name]["mx"] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=r["bound"][0],
+                                       bound_by=r["bound"][1])
     return out
 
 
@@ -1175,6 +1207,7 @@ RESUME_ITERS = 4
 # threads cost an iteration
 TRAINER_VARIANTS = {"fused_augment": (["--fused_augment"], 8),
                     "contrastive": (["--ss_loss", "contrastive"], 8),
+                    "encoder_dtype_mx": (["--encoder_dtype", "mx"], 8),
                     "num_workers_0": (["--num_workers", "0"], TRAINER_ITERS)}
 # shapes a category in the synthetic tree: half train, a quarter val, a
 # quarter test, so the eval's clouds/s is read over 3 batches of B
@@ -1470,11 +1503,17 @@ def trainer_phase(kernels, bare):
         # the variants
         for name, (extra, iters) in TRAINER_VARIANTS.items():
             vargs = args_for(name, "--epoch_iters", str(iters), *extra)
-            _, vwalls, vcounts, vlast, _ = _trainer_run(
+            _, vwalls, vcounts, vlast, vper = _trainer_run(
                 train_partseg, vargs, kernels)
             clustering = [vlast[k] for k in CLUSTERING]
             if (name == "contrastive") == any(clustering) or not vlast["fps"]:
                 raise AssertionError(f"{name} iteration launched {vlast}")
+            # mx: the K-max pair 6 times a step with rounding off, twice
+            # an iteration (supervised and self-sup), no rounding cast
+            if name == "encoder_dtype_mx" and any(
+                    (c["max_bwd_cnt_gsm"], c["max_bwd_dz"], c["sr_bf16"])
+                    != (12, 12, 0) for c in vper):
+                raise AssertionError(f"{name} iterations launched {vper}")
             out[name] = dict(walls=[w for w, _ in vwalls],
                              waits=[w for _, w in vwalls], counts=vcounts,
                              last=vlast)
@@ -2304,45 +2343,7 @@ def mxsr_train_card_vs_cpu(entry):
     rounding now and then (the bf16 eval forward's total-loss limit is
     1e-2).  Also returns the medians over the parameters of the card's
     error, the CPU's spread and the change another key makes."""
-    from prifit_torch.models.pointnet2_part_seg_msg import get_loss
-    from prifit_torch.train.steps import make_supervised_step
-    ts = entry.TRAIN_SETTINGS
-    res = []
-    for dev, s, key in [("cuda", 1.0, SR_BASE), ("cpu", 1.0, SR_BASE)] + [
-            ("cpu", s, SR_BASE) for s in SPREAD_SCALES] + [
-            ("cpu", 1.0, (777, 999))]:
-        state, points, cls, target = entry.train_flagship(2, N, device=dev)
-        state.model.dropout_rate = 0.0
-        _, sm = make_supervised_step(get_loss)(
-            state, points * s, cls, target, ts["lr"], ts["bn_momentum"],
-            sr_key=key)
-        res.append((sm["loss"].item(),
-                    {n: p.grad.float().cpu()
-                     for n, p in state.model.named_parameters()}))
-    (lg, gg), (lc, gc), other_key = res[0], res[1], res[-1]
-    res = res[:-1]
-    l_spread = max(abs(r[0] - lc) for r in res[2:])
-    if not abs(lg - lc) <= 1e-3 * abs(lc):
-        raise AssertionError(f"mxsr supervised loss card {lg} cpu {lc}")
-    worst = (0.0, 0.0, None)
-    errs, spreads, keyed = [], [], []
-    for name, r in gc.items():
-        if _zero_grad_bias(name) or not bool(r.any()):
-            continue
-        err = float((gg[name] - r).norm() / r.norm())
-        spread = max(float((g[name] - r).norm() / r.norm())
-                     for _, g in res[2:])
-        errs.append(err)
-        spreads.append(spread)
-        keyed.append(float((other_key[1][name] - r).norm() / r.norm()))
-        if not err <= 2 * spread + 5e-2:
-            raise AssertionError(f"mxsr gradient of {name}: card vs cpu "
-                                 f"{err} of the norm, cpu spread {spread}")
-        if err / (spread + 1e-30) >= worst[0] / (worst[1] + 1e-30):
-            worst = (err, spread, name)
-    return dict(loss=(lg, lc), loss_spread=l_spread, worst=worst,
-                medians=tuple(float(np.median(v))
-                              for v in (errs, spreads, keyed)))
+    return spread_train_card_vs_cpu(entry, {}, SR_BASE, (777, 999))
 
 
 def convex_grad_card_vs_cpu(options=None):
@@ -2605,6 +2606,589 @@ def narrow_embeddings(seed, shape=(RB, 2500, 8), sizes=(2, 3, 5, 8)):
         X[b] = 4.0 * np.eye(D, dtype=np.float32)[lab] + rng.normal(
             size=(Nq, D)) * 0.15
     return torch.from_numpy(X), list(sizes)
+
+
+# ------------------------------------------------------------- fitting
+
+# the fitting demo at the JAX package's defaults
+# (prifit_tpu/cli/args_parser.py): B=16 scenes of 3 ellipsoids of 500
+# points, 8-wide embeddings, quantile 0.01, 20 mean-shift steps,
+# min(25, 8) slots, 256 samples a primitive
+FIT_B, FIT_N, FIT_D = 16, 1500, 8
+FIT_STEPS = 20
+# its launches a call: the 3 exact clusters of every scene fit the 8
+# slots, so one bandwidth candidate runs (no retry): bandwidth once, 20
+# mean-shift steps forward and back, 3 NMS passes
+FITTING_COUNTS = dict(bandwidth=1, mean_shift=FIT_STEPS,
+                      mean_shift_bwd=FIT_STEPS, nms=3)
+FIT_CALLS = 3
+# the JAX package's own recovery limits (tests/test_geometry.py) and the
+# scene they were set on
+FIT_AXES_RTOL, FIT_CENTER_ATOL, FIT_LIMIT_SCENE = 0.08, 0.6, (2, 3)
+
+
+class record_live_rows:
+    """While active, records the largest live-row count a shape of each
+    cotangent the mean-shift backward kernel takes
+    (``kernels/mean_shift.py::live_rows``)."""
+
+    def __enter__(self):
+        from prifit_torch.kernels import mean_shift
+        self.mod, self.orig, self.counts = mean_shift, mean_shift.live_rows, []
+
+        def live_rows(g):
+            order, count = self.orig(g)
+            self.counts.append(int(count.max()))
+            return order, count
+
+        mean_shift.live_rows = live_rows
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.live_rows = self.orig
+
+
+def demo_grad_norm(dev, dtype=torch.float32):
+    """The fitting demo's convex loss and ``|grad|`` (``cli/fitting.py``'s
+    second half) on ``dev`` in ``dtype``."""
+    from prifit_torch.geometry import convex_loss, create_synthetic_dataset
+    scene = create_synthetic_dataset(FIT_B, seed=0)
+    points = torch.from_numpy(scene.points).to(dev, dtype)
+    emb = (torch.from_numpy(scene.weights[:, :, :FIT_D]) + 0.05).to(
+        dev, dtype).requires_grad_(True)
+    out = convex_loss(points, points, emb, quantile=0.01,
+                      iterations=FIT_STEPS, max_num_clusters=8,
+                      n_per_prim=256)
+    out.total.backward()
+    return out.total.item(), emb.grad.norm().item()
+
+
+def fitting_kernels(gen):
+    """The four clustering kernels at the demo's shapes (B=16, N=1500,
+    D=8, its embeddings normalized) against their plain versions, and
+    their times a launch beside the plain version's and the bound:
+    bandwidth at the demo's rank 15 (1e-5, the main path's limit); NMS
+    on the modes after 20 steps, held by the partition it makes (every
+    mode of a scene's cluster is an exact tie there).  The mean-shift
+    step at the demo's bandwidth (1e-3, its floor: the K-th distances of
+    identical rows are 0) and its backward for a cotangent live in the 3
+    rows a shape the demo gives it (the centers) are held against the
+    plain version evaluated in float64 on the same inputs: each within
+    twice the f32 plain version's own error there plus 1e-4 (of the
+    largest entry; ``s`` relative).  At b^2 = 1e-6 the f32 rounding of a
+    zero distance (1e-7) moves an exponent by 0.05 and each term of the
+    backward is scaled by 1 / b^2, so any f32 evaluation is far from the
+    float64 one (at B=2 on the CPU the plain backward is 9% of its
+    largest entry off); the demo's f32 ``|grad|`` misses float64 for that
+    reason."""
+    from prifit_torch.clustering.mean_shift import mean_shift_iterations
+    from prifit_torch.geometry import create_synthetic_dataset
+    from prifit_torch.kernels import bandwidth, mean_shift, nms
+    scene = create_synthetic_dataset(FIT_B, seed=0)
+    X = torch.from_numpy(scene.weights[:, :, :FIT_D]) + 0.05
+    X = (X / X.norm(dim=-1, keepdim=True)).cuda().contiguous()
+    ks = [int(0.01 * FIT_N)]
+    err, kth = bandwidth_err(X, ks)
+    bw = torch.sqrt(torch.clamp_min(kth[:, 0], 1e-6)).mean(-1)
+    bw2 = (bw ** 2).contiguous()
+    pairs, d = FIT_B * FIT_N * FIT_N, FIT_D
+    out = {"bandwidth": dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: bandwidth.kth_nn_distance(X, ks)),
+        plain_ms=cuda_ms(lambda: bandwidth.kth_nn_plain(X, ks), reps=3),
+        bound=bound_ms(nbytes(X) + FIT_B * FIT_N * 4, 4 * pairs,
+                       3 * 2 * pairs * d))}
+    m, s = mean_shift.mean_shift_step(X, X, bw2)
+    mr, sr = mean_shift.mean_shift_step_plain(X, X, bw2)
+    m64, s64 = mean_shift.mean_shift_step_plain(X.double(), X.double(),
+                                                bw2.double())
+    e, own = ((u.double() - m64).abs().max().item() for u in (m, mr))
+    se, sown = (((u.double() - s64).abs() / s64).max().item()
+                for u in (s, sr))
+    if not (e <= 2 * own + 1e-4 and se <= 2 * sown + 1e-4):
+        raise AssertionError(f"fitting mean_shift max abs err {e} (f32 "
+                             f"plain {own}), s {se} (f32 plain {sown})")
+    out["mean_shift"] = dict(
+        max_abs_err=e, ms=cuda_ms(lambda: mean_shift.mean_shift_step(
+            X, X, bw2)),
+        plain_ms=cuda_ms(lambda: mean_shift.mean_shift_step_plain(
+            X, X, bw2), reps=3),
+        bound=bound_ms(2 * nbytes(X) + nbytes(bw2, m, s), pairs,
+                       3 * 4 * pairs * d))
+    m, s = mean_shift.mean_shift_step_fwd(X, X, bw2)
+    g = sparse_cotangent(gen, 3, shape=(FIT_B, FIT_N, FIT_D))
+    got = mean_shift.mean_shift_step_bwd(X, X, bw2, m, s, g)
+    e, top, own, _ = bwd_plain_err(got, X, bw2, m, s, g)
+    if not e <= 2 * own + 1e-4 * top:
+        raise AssertionError(f"fitting mean_shift_bwd max abs err {e} "
+                             f"(largest entry {top}, f32 plain {own})")
+    live = FIT_B * 3
+    out["mean_shift_bwd"] = dict(
+        max_abs_err=e,
+        ms=cuda_ms(lambda: mean_shift.mean_shift_step_bwd(X, X, bw2, m, s,
+                                                          g)),
+        plain_ms=cuda_ms(lambda: mean_shift.mean_shift_step_bwd_plain(
+            X, X, bw2, m, s, g), reps=3),
+        bound=bound_ms(4 * nbytes(X) + live * (2 * d + 1) * 4 + nbytes(bw2),
+                       live * FIT_N, 3 * 10 * live * FIT_N * d))
+    with torch.no_grad():
+        modes = mean_shift_iterations(X, bw, FIT_STEPS).contiguous()
+    b = bw.float().contiguous()
+    (lg, vg, ng), (lc, vc, nc) = (
+        nms_partition(modes, o, K=8) for o in (
+            nms.nms_passes(modes, b), nms.nms_passes_plain(modes, b)))
+    if not (torch.equal(vg.sum(-1), vc.sum(-1)) and torch.equal(ng, nc)):
+        raise AssertionError("fitting nms: slot counts differ")
+    for i in range(FIT_B):
+        slot_perm(lg[i].cpu(), lc[i].cpu(), f"fitting nms shape {i}")
+    counts, is_center, _ = nms.nms_passes_plain(modes, b)
+    occ = (counts > 0).sum(-1)
+    npairs = pairs + int((occ * occ).sum()) + FIT_N * int(is_center.sum())
+    out["nms"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: nms.nms_passes(modes, b)),
+        plain_ms=cuda_ms(lambda: nms.nms_passes_plain(modes, b), reps=3),
+        bound=bound_ms(nbytes(modes, b) + 6 * FIT_B * FIT_N, 0,
+                       3 * 2 * npairs * d))
+    return out
+
+
+def fitting_phase(kernels):
+    """``prifit_torch.cli.fitting.main`` (``python -m
+    prifit_torch.cli.fitting``) on the card at the JAX defaults: one
+    warm-up call, then ``FIT_CALLS`` timed ones with the launch counts
+    reset just before (each exactly ``FITTING_COUNTS``; every cotangent
+    of the mean-shift backward live in at most 8 rows a shape, so the
+    live-row route takes it).  Checks every fitted axis within the JAX
+    package's ``rtol`` 0.08 of the true one; its center limit (0.6) holds
+    on the scene it was set on (B=2, seed 3), where the card's fits are
+    checked against both limits, while at the default scene (seed 0) the
+    JAX package's own fit is 1.11 off on one center, so there the largest
+    center error is reported and the card held to the CPU.  Card against
+    CPU (eigenvector signs aligned): fitted radii and centers within 1e-4
+    relative, the loss and chamfer within 1e-4 relative.  ``|grad|`` is
+    held against the CPU's float64 evaluation: at the demo's bandwidth
+    (b^2 = 1e-6, the floor: the clusters are exact) every term of the
+    mean-shift backward and the membership is scaled by 1 / b^2, so f32
+    rounding moves ``|grad|`` by 2-12% (on the CPU the port's f32 is 8.7%
+    and JAX's 6.6% off the port's float64 1.196e-6; its spread under the
+    embeddings scaled by 1 +- 2^-20 is 0.2%, so no spread rule holds it);
+    the card must be within twice the CPU f32 evaluation's own error
+    there plus 5e-2.  Then the kernels at these shapes
+    (:func:`fitting_kernels`)."""
+    import contextlib
+    import io
+
+    from prifit_torch.cli import fitting
+    from prifit_torch.cli.args_parser import parse_args
+    from prifit_torch.geometry import create_synthetic_dataset, \
+        fit_ellipsoids_batch
+    args = parse_args([])
+    if (args.batch_size, args.quantile, args.msc_iterations,
+            args.n_per_prim) != (FIT_B, 0.01, FIT_STEPS, 256):
+        raise AssertionError(f"the demo's defaults changed: {args}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        fitting.main(args, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    walls = []
+    with record_live_rows() as live:
+        for _ in range(FIT_CALLS):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                card = fitting.main(args, device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    want = {k: FIT_CALLS * FITTING_COUNTS.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"fitting demo launched {counts} in "
+                             f"{FIT_CALLS} calls, not {want}")
+    if len(live.counts) != FIT_CALLS * FIT_STEPS or max(live.counts) > 8:
+        raise AssertionError(f"fitting demo backward live rows "
+                             f"{live.counts}")
+    text = buf.getvalue()
+    if text.count("fitted") != 3 * FIT_B or "fit pipeline OK" not in text:
+        raise AssertionError(f"fitting demo printed {text[-300:]}")
+    rel = np.abs(np.sort(card["r"], -1) / np.sort(card["true_r"], -1) - 1)
+    if not rel.max() <= FIT_AXES_RTOL:
+        raise AssertionError(f"fitted axes {rel.max()} off the true ones")
+    center_err = float(np.abs(card["center"] - card["true_center"]).max())
+    b0, seed0 = FIT_LIMIT_SCENE
+    sc = create_synthetic_dataset(b0, seed=seed0)
+    with torch.no_grad():
+        p = fit_ellipsoids_batch(torch.from_numpy(sc.points).cuda(),
+                                 torch.from_numpy(sc.weights).cuda())
+    r0 = np.sort(p.r[:, :3].cpu().numpy(), -1)
+    c0 = np.abs(p.center[:, :3].cpu().numpy() - sc.centers).max()
+    if not (np.abs(r0 / np.sort(sc.params, -1) - 1).max() <= FIT_AXES_RTOL
+            and c0 <= FIT_CENTER_ATOL):
+        raise AssertionError(f"fit of the limits' scene: center err {c0}")
+    with eigh_signs_from_card(), contextlib.redirect_stdout(io.StringIO()):
+        cpu = fitting.main(args, device="cpu")
+    for k in ("r", "center"):
+        e = np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max()
+        if not e <= 1e-4:
+            raise AssertionError(f"fitting {k} card vs cpu {e}")
+    for k in ("total", "chamfer"):
+        if not abs(card[k] - cpu[k]) <= 1e-4 * abs(cpu[k]):
+            raise AssertionError(f"fitting {k} card {card[k]} cpu {cpu[k]}")
+    with eigh_signs_from_card():
+        g64 = demo_grad_norm("cpu", torch.float64)[1]
+    own = abs(cpu["grad_norm"] - g64)
+    if not abs(card["grad_norm"] - g64) <= 2 * own + 5e-2 * g64:
+        raise AssertionError(f"fitting |grad| card {card['grad_norm']} cpu "
+                             f"{cpu['grad_norm']} cpu float64 {g64}")
+    return dict(walls=walls, counts=counts, live=max(live.counts),
+                axes_rel=float(rel.max()), center_err=center_err,
+                limit_scene=(float(np.abs(r0 / np.sort(sc.params, -1)
+                                          - 1).max()), float(c0)),
+                card=card, cpu=cpu, grad64=g64,
+                kernels=fitting_kernels(torch.Generator().manual_seed(8)))
+
+
+def log_fitting(fit, smi):
+    c, g = fit["card"], fit["cpu"]
+    log(f"fitting demo (python -m prifit_torch.cli.fitting, B={FIT_B}, "
+        f"N={FIT_N}, D={FIT_D}, {FIT_STEPS} steps, 8 slots): "
+        f"{_ms(fit['walls'])} ms a call (median of {FIT_CALLS}: "
+        f"{[round(w * 1e3, 1) for w in fit['walls']]}) [{smi}]; launches in "
+        f"{FIT_CALLS} calls {fit['counts']}; backward cotangents live in at "
+        f"most {fit['live']} rows a shape; axes at most "
+        f"{fit['axes_rel']:.4f} relative off the true ones, centers "
+        f"{fit['center_err']:.4f} (the limits' scene: "
+        f"{fit['limit_scene'][0]:.4f}, {fit['limit_scene'][1]:.4f})")
+    log(f"fitting card vs cpu: loss {c['total']:.7f} / {g['total']:.7f}, "
+        f"chamfer {c['chamfer']:.7f} / {g['chamfer']:.7f}, |grad| "
+        f"{c['grad_norm']:.6g} / {g['grad_norm']:.6g} (cpu float64 "
+        f"{fit['grad64']:.6g}), radii "
+        f"{np.abs(c['r'] - g['r']).max():.3g} apart")
+    for name, k in fit["kernels"].items():
+        log(f"fitting {name} at B={FIT_B} N={FIT_N} D={FIT_D}: max_abs_err "
+            f"{k['max_abs_err']:.3g} kernel_ms {k['ms']:.4f} plain_ms "
+            f"{k['plain_ms']:.4f} bound_ms {k['bound'][0]:.4f} "
+            f"({k['bound'][1]}) a launch [{smi}]")
+
+
+# ------------------------------------------------------------- library
+
+# cluster_single's launches on one structured shape (4 clusters, no retry)
+# at the main path's settings: bandwidth once and 3 NMS passes; 10
+# mean-shift steps with the gaussian kernel, none with the epanechnikov
+# one (plain PyTorch in the JAX package too)
+SINGLE_KW = dict(quantile=0.05, iterations=10, max_num_clusters=25,
+                 num_candidates=2)
+SINGLE_COUNTS = {"gaussian": dict(bandwidth=1, mean_shift=10, nms=3),
+                 "epanechnikov": dict(bandwidth=1, nms=3)}
+
+
+def _rel(a, b):
+    """The largest ``|a - b|`` over the largest ``|b|`` (tensors or
+    floats, ``a`` on any device)."""
+    a = torch.as_tensor(a).detach().double().cpu()
+    b = torch.as_tensor(b).detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def library_phase(kernels):
+    """The library surface, card against CPU: the chamfer family within
+    1e-5 relative; ``lstsq`` and its gradients (full rank within 1e-4 of
+    the largest entry; rank-deficient, where ``A^T A + lambda I`` has
+    condition number ~1e5, the solution and the gradient in ``Y`` within
+    5e-4 and each side within 5e-4 of the float64 ridge solve, and the
+    gradient in ``A`` in float64 within 1e-8: the f32 ones are O(1) off,
+    that condition number squared, as in tests/test_torch_library.py);
+    ``cluster_single`` with both kernel types (:func:`same_clustering`,
+    launches exactly ``SINGLE_COUNTS``); ``compute_bandwidth`` within
+    1e-5 relative; the viz exporters' files byte-equal from a card tensor
+    and a CPU one; and ``StepTimer`` and ``sync`` around a card step.
+    Returns the launches of the whole phase and the errors."""
+    import shutil
+    import tempfile
+
+    from prifit_torch import ops, utils
+    from prifit_torch.clustering import cluster_single, compute_bandwidth
+    from prifit_torch.ops.lstsq import best_lambda
+    from prifit_torch.utils import viz
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(41)
+    res = {}
+    pred = torch.from_numpy(rng.normal(size=(4, 2048, 3)).astype(np.float32))
+    gt = torch.from_numpy(rng.normal(size=(4, 5000, 3)).astype(np.float32))
+    pm = torch.from_numpy(rng.random((4, 2048)) < 0.8)
+    gm = torch.from_numpy(rng.random((4, 5000)) < 0.7)
+    cases = {
+        "chamfer_distance": lambda p, g, a, b: ops.chamfer_distance(
+            p, g, sqrt=True, pred_mask=a, gt_mask=b),
+        "chamfer_distance_one_side": lambda p, g, a, b:
+            ops.chamfer_distance_one_side(p, g, side=0),
+        "chamfer_distance_single_shape": lambda p, g, a, b:
+            ops.chamfer_distance_single_shape(p[0], g[0], sqrt=True),
+        "chamfer_distance_pairwise_batch": lambda p, g, a, b:
+            ops.chamfer_distance_pairwise_batch(p, g),
+    }
+    for name, fn in cases.items():
+        e = _rel(fn(pred.cuda(), gt.cuda(), pm.cuda(), gm.cuda()),
+                 fn(pred, gt, pm, gm))
+        if not e <= 1e-5:
+            raise AssertionError(f"{name} card vs cpu {e}")
+        res[name] = e
+
+    col = rng.normal(size=(64, 1))
+    inputs = {"full_rank": rng.normal(size=(64, 8)),
+              "rank_deficient": np.concatenate(
+                  [col, 2.0 * col, rng.normal(size=(64, 1))], 1)}
+    Y = torch.from_numpy(rng.normal(size=(64, 3)).astype(np.float32))
+    for kind, A in inputs.items():
+        A = torch.from_numpy(A.astype(np.float32))
+        sides = {}
+        for side, dev, dt in (("cuda", "cuda", torch.float32),
+                              ("cpu", "cpu", torch.float32),
+                              ("cuda64", "cuda", torch.float64),
+                              ("cpu64", "cpu", torch.float64)):
+            a = A.to(dev, dt, copy=True).requires_grad_(True)
+            y = Y.to(dev, dt, copy=True).requires_grad_(True)
+            x = ops.lstsq(a, y)
+            (x ** 2).sum().backward()
+            sides[side] = (x, a.grad, y.grad)
+        full = kind == "full_rank"
+        tol = 1e-4 if full else 5e-4
+        errs = [_rel(g, c) for g, c in zip(sides["cuda"], sides["cpu"])]
+        held = errs if full else [errs[0], errs[2]]   # x, dA, dY
+        if not (max(held) <= tol
+                and _rel(sides["cuda64"][1], sides["cpu64"][1]) <= 1e-8):
+            raise AssertionError(f"lstsq {kind} card vs cpu {errs}")
+        if not full:
+            lg = float(best_lambda(A.cuda().T @ A.cuda()))
+            if lg != float(best_lambda(A.T @ A)):
+                raise AssertionError(f"lstsq lambda card {lg}")
+            for dev in ("cuda", "cpu"):
+                e = _rel(sides[dev][0], sides["cpu64"][0])
+                if not e <= tol:
+                    raise AssertionError(f"lstsq {kind} {dev} vs float64 "
+                                         f"{e}")
+        res[f"lstsq_{kind}"] = errs
+
+    X, expected = structured_embeddings(5)
+    x = X[1]
+    for kt, want in SINGLE_COUNTS.items():
+        before = kernels.launch_counts()
+        g = cluster_single(x.cuda(), kernel_type=kt, **SINGLE_KW)
+        got = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"cluster_single {kt} launched {got}")
+        c = cluster_single(x, kernel_type=kt, **SINGLE_KW)
+        res[f"cluster_single_{kt}"] = same_clustering(
+            type(g)(*(t[None].cpu() for t in g)),
+            type(c)(*(t[None] for t in c)), [expected[1]])
+    Xn = x / x.norm(dim=-1, keepdim=True)
+    bg = compute_bandwidth(Xn.cuda(), 0.05).item()
+    bc = compute_bandwidth(Xn, 0.05).item()
+    if not abs(bg - bc) <= 1e-5 * bc:
+        raise AssertionError(f"compute_bandwidth card {bg} cpu {bc}")
+    res["compute_bandwidth"] = (bg, bc)
+
+    os.makedirs(os.path.join(ROOT, "log"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_viz_",
+                           dir=os.path.join(ROOT, "log"))
+    try:
+        pts = torch.from_numpy(rng.normal(size=(500, 3)).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, 6, 500))
+        for side, p, lab in (("card", pts.cuda(), labels.cuda()),
+                             ("cpu", pts, labels)):
+            colors = viz.labels_to_colors(lab)
+            viz.save_xyz(os.path.join(tmp, f"{side}.xyz"), p, colors)
+            viz.save_ply(os.path.join(tmp, f"{side}.ply"), p, colors)
+        for ext in ("xyz", "ply"):
+            with open(os.path.join(tmp, f"card.{ext}"), "rb") as f, \
+                    open(os.path.join(tmp, f"cpu.{ext}"), "rb") as h:
+                if f.read() != h.read():
+                    raise AssertionError(f"viz .{ext} differs card vs cpu")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    timer = utils.StepTimer()
+    xc = x.cuda()
+    step_s = timer.time_fn(lambda: cluster_single(xc, **SINGLE_KW).centers,
+                           warmup=1, reps=3)
+    with timer.step() as done:
+        done(cluster_single(xc, **SINGLE_KW))
+    top = cluster_single(xc, **SINGLE_KW).centers
+    if not (timer.summary()["n"] == 2 and min(timer.times) > 0
+            and utils.sync(top) == top.reshape(-1)[0].item()):
+        raise AssertionError(f"StepTimer {timer.summary()}")
+    res["step_timer"] = dict(time_fn_ms=step_s * 1e3,
+                             step_ms=timer.times[-1] * 1e3)
+    return dict(counts=kernels.launch_counts(), checks=res)
+
+
+def log_library(lib, smi):
+    c = lib["checks"]
+    log(f"library card vs cpu: chamfer family "
+        f"{ {k: f'{v:.2g}' for k, v in c.items() if k.startswith('chamfer')} }"
+        f" relative; lstsq (solution, dA, dY) full rank "
+        f"{[f'{e:.2g}' for e in c['lstsq_full_rank']]}, rank-deficient "
+        f"{[f'{e:.2g}' for e in c['lstsq_rank_deficient']]}; cluster_single "
+        f"gaussian / epanechnikov same partition (weights, centers err "
+        f"{c['cluster_single_gaussian']} / "
+        f"{c['cluster_single_epanechnikov']}); compute_bandwidth "
+        f"{c['compute_bandwidth'][0]:.7f} / {c['compute_bandwidth'][1]:.7f};"
+        f" viz exporters byte-equal; StepTimer cluster_single "
+        f"{c['step_timer']['time_fn_ms']:.2f} ms (time_fn), "
+        f"{c['step_timer']['step_ms']:.2f} ms (step) [{smi}]; launches in "
+        f"the phase { {k: v for k, v in lib['counts'].items() if v} }")
+
+
+# -------------------------------------------------------------- dtypes
+
+# the encoder dtypes the trainer accepts besides mxsr and f32: name ->
+# train_flagship's dtype arguments
+ALL_STAGES = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
+DTYPE_MODES = {
+    "bf16": dict(compute_dtype="bf16"),
+    "sa_bf16": dict(compute_dtype="sa_bf16"),
+    "mx": dict(compute_dtype="mx"),
+    "fq": dict(compute_dtype="f32",
+               stage_dtypes=",".join(f"{s}:fq" for s in ALL_STAGES)),
+    "q": dict(compute_dtype="f32",
+              stage_dtypes=",".join(f"{s}:q" for s in ALL_STAGES)),
+    "sa1_bf16_fp2_q": dict(compute_dtype="f32",
+                           stage_dtypes="sa1:bf16,fp2:q"),
+}
+
+
+def check_dtype_counts(c, kmax, what):
+    """3 steps' launches ``c`` of a dtype mode: FPS twice and the gather
+    10 times a step; the K-max backward pair 6 times a step under ``mx``
+    (rounding off), never otherwise; the rounding cast never."""
+    want = dict(fps=6, gather=30, max_bwd_cnt_gsm=18 if kmax else 0,
+                max_bwd_dz=18 if kmax else 0, sr_bf16=0)
+    got = {k: c[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launched {got} in 3 steps, not "
+                             f"{want}")
+
+
+def spread_train_card_vs_cpu(entry, model_kw, key=None, other_key=None):
+    """One B=2 supervised step with the encoder dtypes ``model_kw`` on the
+    card and on the CPU from the same seeded weights (and rounding key),
+    dropout off and FPS from index 0; four more CPU steps on the cloud
+    scaled by ``SPREAD_SCALES``; with ``other_key`` one more CPU step
+    with that key.  The loss within 1e-3 relative; each gradient within
+    twice the CPU's own spread under those scales plus 5e-2 of its norm
+    (:func:`mxsr_train_card_vs_cpu` says why).  Returns the losses, the
+    CPU's loss spread, the parameter worst against its limit and the
+    medians over the parameters of the card's error, the CPU's spread
+    (and the change the other key makes)."""
+    from prifit_torch.models.pointnet2_part_seg_msg import get_loss
+    from prifit_torch.train.steps import make_supervised_step
+    ts = entry.TRAIN_SETTINGS
+    runs = [("cuda", 1.0, key), ("cpu", 1.0, key)] + [
+        ("cpu", s, key) for s in SPREAD_SCALES]
+    if other_key is not None:
+        runs.append(("cpu", 1.0, other_key))
+    res = []
+    for dev, s, k in runs:
+        state, points, cls, target = entry.train_flagship(
+            2, N, device=dev, **model_kw)
+        state.model.dropout_rate = 0.0
+        _, sm = make_supervised_step(get_loss)(
+            state, points * s, cls, target, ts["lr"], ts["bn_momentum"],
+            sr_key=k)
+        res.append((sm["loss"].item(),
+                    {n: p.grad.float().cpu()
+                     for n, p in state.model.named_parameters()}))
+    keyed_run = res.pop() if other_key is not None else None
+    (lg, gg), (lc, gc) = res[0], res[1]
+    l_spread = max(abs(r[0] - lc) for r in res[2:])
+    if not abs(lg - lc) <= 1e-3 * abs(lc):
+        raise AssertionError(f"{model_kw} supervised loss card {lg} cpu {lc}")
+    worst = (0.0, 0.0, None)
+    errs, spreads, keyed = [], [], []
+    for name, r in gc.items():
+        if _zero_grad_bias(name) or not bool(r.any()):
+            continue
+        err = float((gg[name] - r).norm() / r.norm())
+        spread = max(float((g[name] - r).norm() / r.norm())
+                     for _, g in res[2:])
+        errs.append(err)
+        spreads.append(spread)
+        if keyed_run is not None:
+            keyed.append(float((keyed_run[1][name] - r).norm() / r.norm()))
+        if not err <= 2 * spread + 5e-2:
+            raise AssertionError(f"{model_kw} gradient of {name}: card vs "
+                                 f"cpu {err} of the norm, cpu spread "
+                                 f"{spread}")
+        if err / (spread + 1e-30) >= worst[0] / (worst[1] + 1e-30):
+            worst = (err, spread, name)
+    return dict(loss=(lg, lc), loss_spread=l_spread, worst=worst,
+                medians=tuple(float(np.median(v))
+                              for v in (errs, spreads, keyed) if v))
+
+
+def dtype_phase(entry, kernels):
+    """Each of ``DTYPE_MODES``: the supervised and the self-sup step of
+    the flagship at B=24, N=2048 (``entry.train_flagship`` with those
+    dtypes), a warm-up and three timed steps each (:func:`timed_steps`),
+    launches exact (:func:`check_dtype_counts`; the self-sup step also
+    launches every clustering kernel, the mean-shift backward once a
+    forward step); then one B=2 supervised step each card against CPU
+    (:func:`spread_train_card_vs_cpu`).  The ``mxsr`` and f32 steps of
+    the same call are :func:`train_path`'s."""
+    from prifit_torch.models.pointnet2_part_seg_msg import get_loss
+    from prifit_torch.train.steps import make_selfsup_step, \
+        make_supervised_step
+    ts = entry.TRAIN_SETTINGS
+    out = {}
+    for mode, kw in DTYPE_MODES.items():
+        state, points, cls, target = entry.train_flagship(B, N, **kw)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        sup = make_supervised_step(get_loss)
+        ss = make_selfsup_step(**entry.BENCH_KWARGS)
+        runs = {
+            "supervised": lambda: sup(state, points, cls, target, ts["lr"],
+                                      ts["bn_momentum"], gen),
+            "selfsup": lambda: ss(state, points, cls, points, ts["lr"],
+                                  ts["bn_momentum"], ts["lmbda"], gen),
+        }
+        r = {name: timed_steps(state, run, kernels, f"{mode} {name}")
+             for name, run in runs.items()}
+        for name in runs:
+            check_dtype_counts(r[name]["counts"], mode == "mx",
+                               f"{mode} {name}")
+        check_selfsup_counts(r["selfsup"]["counts"], False,
+                             f"{mode} self-sup")
+        r["card_vs_cpu"] = spread_train_card_vs_cpu(entry, kw)
+        out[mode] = r
+        del state, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def log_dtypes(dt, train, smi):
+    """The dtype modes' lines, after the ``mxsr`` (``auto``) and f32 steps
+    of :func:`train_path` in the same call."""
+    for mode, r in [("mxsr", train["auto"]), ("f32", train["f32"])] + list(
+            dt.items()):
+        spec = DTYPE_MODES.get(mode, {})
+        for name in ("supervised", "selfsup"):
+            s = r[name]
+            t = sorted(s["times"])[1]
+            log(f"dtype {mode} {spec}, {name} step B={B} N={N}: "
+                f"{t * 1e3:.1f} ms (median of 3; "
+                f"{', '.join(f'{x * 1e3:.1f}' for x in s['times'])}) "
+                f"[{smi}]; peak memory {s['peak'] / 2**30:.2f} GiB; "
+                f"launches in 3 steps "
+                f"{ {k: v for k, v in s['counts'].items() if v} }")
+        if "card_vs_cpu" in r:
+            c = r["card_vs_cpu"]
+            err, spread, name = c["worst"]
+            log(f"dtype {mode} card vs cpu B=2 supervised: loss "
+                f"{c['loss'][0]:.7f} / {c['loss'][1]:.7f} (cpu spread "
+                f"{c['loss_spread']:.3g}); worst gradient {name}: "
+                f"{err:.4f} of the norm, cpu spread {spread:.4f}; medians "
+                f"card vs cpu {c['medians'][0]:.4f}, cpu spread "
+                f"{c['medians'][1]:.4f}")
 
 
 # per-kernel numbers beyond the common ones: the mean-shift backward's on
@@ -3276,7 +3860,7 @@ def log_registry(reg, smi):
 
 EXTRA_KEYS = ("sparse", "inputs", "device_ms", "int32_ms", "bound_f32_ms",
               "equal_rows_ms", "per_call_ms", "us_per_step", "launch_shapes",
-              "registry")
+              "registry", "fitting", "mx")
 # what each kernel phase times
 CALLS_OF = {"mean_shift_bwd": "one self-sup step",
             "max_bwd_cnt_gsm": "one mxsr train step",
@@ -3294,6 +3878,11 @@ def log_kernels(results, smi):
             f"{r['library_ms']} bound_ms {r['bound'][0]:.4f} "
             f"({r['bound'][1]}) [calls of "
             f"{CALLS_OF.get(name, 'one forward')}, {smi}]")
+        if "mx" in r:
+            m = r["mx"]
+            log(f"  {name}, one mx step (rounding off): kernel_ms "
+                f"{m['ms']:.4f} plain_ms {m['plain_ms']:.4f} bound_ms "
+                f"{m['bound_ms']:.4f} ({m['bound_by']})")
         for sp in r.get("sparse", ()):
             log(f"  {name}, {sp['live_rows']} live rows a shape: max_abs_err "
                 f"{sp['max_abs_err']:.3g} kernel_ms {sp['ms']:.4f} plain_ms "
@@ -3524,6 +4113,16 @@ def main():
     log_registry(reg, smi)
     results["fps"]["registry"] = reg["kernels"]["fps"]
     results["gather"]["registry"] = reg["kernels"]["gather"]
+    fit = fitting_phase(kernels)
+    log_fitting(fit, smi)
+    for name, k in fit["kernels"].items():
+        results[name]["fitting"] = dict(
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+            bound_ms=k["bound"][0], bound_by=k["bound"][1])
+    lib = library_phase(kernels)
+    log_library(lib, smi)
+    dts = dtype_phase(entry, kernels)
+    log_dtypes(dts, train, smi)
     tc = train_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
         f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
@@ -3595,6 +4194,12 @@ def main():
     paths["probe"] = _sum_counts(reg["probe"]["probe_counts"])
     paths.update({f"model_{name}": r["counts"]
                   for name, r in reg["models"].items()})
+    paths["trainer_mx"] = tr["encoder_dtype_mx"]["counts"]
+    paths["fitting"] = fit["counts"]
+    paths["library"] = lib["counts"]
+    paths.update({f"dtype_{mode}": _sum_counts(
+        [r["supervised"]["counts"], r["selfsup"]["counts"]])
+        for mode, r in dts.items()})
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]

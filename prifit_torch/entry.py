@@ -76,18 +76,19 @@ def flagship(batch: int, npoint: int, *, device=None):
 
 
 def train_flagship(batch: int, npoint: int, *, device=None,
-                   compute_dtype: str = "auto"):
+                   compute_dtype: str = "auto", stage_dtypes: str = ""):
     """``(state, points, cls, target)``: the flagship with the encoder
     dtype ``compute_dtype`` (the JAX package's default ``"auto"`` =
-    ``mxsr``; ``"f32"`` for the f32 encoder) in train mode, random weights
-    from seed 0 and an Adam
+    ``mxsr``; ``"f32"`` for the f32 encoder) and the per-stage overrides
+    ``stage_dtypes`` (the trainer's ``--stage_dtypes``) in train mode,
+    random weights from seed 0 and an Adam
     :class:`~prifit_torch.train.state.TrainState`; a gaussian cloud
     ``[batch, npoint, 3]`` from seed 0 (the one :func:`flagship` makes),
     category 0, and random part labels ``[batch, npoint]`` from the same
     seed."""
     device = resolve_device(device)
     model = get_model(num_parts=50, compute_dtype=compute_dtype,
-                      device="cpu")
+                      stage_dtypes=stage_dtypes, device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     state = create_train_state(model.to(device).train())
     rng = np.random.default_rng(0)

@@ -71,12 +71,10 @@ def fix_reflection(V: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
-def fit_ellipsoids_batch(points: torch.Tensor, weights: torch.Tensor,
-                         slot_valid: torch.Tensor | None = None
-                         ) -> PrimitiveParams:
-    """One weighted ellipsoid per slot: ``points [B, N, 3]``, ``weights
-    [B, N, K]``, ``slot_valid [B, K]`` -> :class:`PrimitiveParams`
-    ``[B, K, ...]``."""
+def _fit_slots(points: torch.Tensor, weights: torch.Tensor):
+    """The unmasked fit of every slot: ``points [B, N, 3]``, ``weights
+    [B, N, K]`` -> ``(r, V, center, valid)``, ``[B, K, ...]``; ``valid``
+    combines the minimum-weight and condition-number checks."""
     w = weights.transpose(1, 2)[..., None]                  # [B, K, N, 1]
     sum_w = weights.sum(dim=1)                              # [B, K]
     safe = torch.clamp_min(sum_w, WSUM_EPS)[..., None]
@@ -92,6 +90,36 @@ def fit_ellipsoids_batch(points: torch.Tensor, weights: torch.Tensor,
     V = fix_reflection(V)
     transformed = torch.matmul(centered * w, V)             # [B, K, N, 3]
     r = (transformed.amax(dim=2) - transformed.amin(dim=2)) / 2.0
+    return r, V, center, valid
+
+
+def fit_ellipsoid_weighted(points: torch.Tensor, weights: torch.Tensor):
+    """The weighted fit of one cluster: ``points [N, 3]``, ``weights
+    [N]`` -> ``(r [3], V [3, 3], center [3], valid [])``, unmasked (a
+    view of the batched fit at one shape and one slot)."""
+    r, V, center, valid = _fit_slots(points[None], weights[None, :, None])
+    return r[0, 0], V[0, 0], center[0, 0], valid[0, 0]
+
+
+def fit_ellipsoids(points: torch.Tensor, weights: torch.Tensor,
+                   slot_valid: torch.Tensor | None = None
+                   ) -> PrimitiveParams:
+    """One primitive per slot of one shape: ``points [N, 3]``, ``weights
+    [N, K]``, ``slot_valid [K]`` -> :class:`PrimitiveParams` ``[K, ...]``
+    (a view of :func:`fit_ellipsoids_batch` at one shape)."""
+    out = fit_ellipsoids_batch(
+        points[None], weights[None],
+        None if slot_valid is None else slot_valid[None])
+    return PrimitiveParams(*(t[0] for t in out))
+
+
+def fit_ellipsoids_batch(points: torch.Tensor, weights: torch.Tensor,
+                         slot_valid: torch.Tensor | None = None
+                         ) -> PrimitiveParams:
+    """One weighted ellipsoid per slot: ``points [B, N, 3]``, ``weights
+    [B, N, K]``, ``slot_valid [B, K]`` -> :class:`PrimitiveParams`
+    ``[B, K, ...]``."""
+    r, V, center, valid = _fit_slots(points, weights)
     if slot_valid is not None:
         valid = valid & slot_valid
     m = valid[..., None]

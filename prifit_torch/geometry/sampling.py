@@ -96,3 +96,13 @@ def sample_primitives_batch(params: PrimitiveParams, n_per_prim: int = 400,
     w = w * params.valid[..., None]
     B = pts.shape[0]
     return pts.reshape(B, -1, 3), w.reshape(B, -1)
+
+
+def sample_primitives(params: PrimitiveParams, n_per_prim: int = 400,
+                      cuboid: bool = False):
+    """Samples of the K slots of one shape (``params`` ``[K, ...]``) ->
+    ``(points [K * S, 3], weights [K * S])``: a view of
+    :func:`sample_primitives_batch` at one shape."""
+    pts, w = sample_primitives_batch(
+        PrimitiveParams(*(t[None] for t in params)), n_per_prim, cuboid)
+    return pts[0], w[0]

@@ -32,8 +32,10 @@ from prifit_torch.models import (
 )
 from prifit_torch.models.common import (
     SegOutput,
+    chamfer_loss_dense,
     nll_loss,
     pairwise_contrastive_loss,
+    to_categorical,
 )
 
 MODEL_NAMES = (
@@ -70,5 +72,5 @@ __all__ = ["MODEL_NAMES", "PART_SEG", "common", "dgcnn",
            "pointnet2_part_seg_msg", "pointnet2_part_seg_ssg",
            "pointnet2_sem_seg", "pointnet_cls", "pointnet_part_seg",
            "pointnet_sem_seg", "pretrain_pointnet2_part_seg_msg",
-           "reconstruction", "SegOutput", "nll_loss",
-           "pairwise_contrastive_loss"]
+           "reconstruction", "SegOutput", "chamfer_loss_dense",
+           "nll_loss", "pairwise_contrastive_loss", "to_categorical"]

@@ -1,7 +1,7 @@
 """Model output contract and encoder dtype selection.
 
 Port of ``prifit_tpu/models/common.py``: ``SegOutput``, ``nll_loss``,
-``pairwise_contrastive_loss``, ``chamfer_loss_dense``,
+``to_categorical``, ``pairwise_contrastive_loss``, ``chamfer_loss_dense``,
 ``encoder_dtypes``, ``stage_cfg`` and ``maybe_quant``; with the draws the
 models share (``region_keys``, ``dropout``).
 """
@@ -36,6 +36,12 @@ def nll_loss(pred_logprob: torch.Tensor, target: torch.Tensor
     log-probabilities)."""
     ll = torch.gather(pred_logprob, -1, target[..., None].long())[..., 0]
     return -torch.mean(ll)
+
+
+def to_categorical(y: torch.Tensor, num_classes: int = 16) -> torch.Tensor:
+    """One-hot f32 category labels of ``y`` (flattened)."""
+    return torch.nn.functional.one_hot(y.reshape(-1).long(),
+                                       num_classes).float()
 
 
 def pairwise_contrastive_loss(feat: torch.Tensor, target: torch.Tensor,

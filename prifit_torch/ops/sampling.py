@@ -22,6 +22,11 @@ def gather_neighbors(points: torch.Tensor, idx: torch.Tensor
     return gather_rows(points.contiguous(), idx)
 
 
+# the JAX package's name for the same batched gather (``out[b, ...] =
+# points[b, idx[b, ...], :]``)
+index_points = gather_neighbors
+
+
 def farthest_points(xyz: torch.Tensor, npoint: int,
                     start: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:

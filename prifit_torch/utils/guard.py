@@ -1,7 +1,8 @@
 """Numeric guards (the port's copy of ``prifit_tpu/utils/guard.py``).
 
 Parity with the reference sanitizers: clamp the argument of ``exp`` to
-[-13, 75] and floor the argument of ``sqrt``.
+[-13, 75], floor the argument of ``sqrt`` and clamp the argument of
+``acos`` inside (-1, 1).
 """
 
 import torch
@@ -19,3 +20,12 @@ def guard_exp(x: torch.Tensor, max_value: float = EXP_HI,
 def guard_sqrt(x: torch.Tensor, minimum: float = 1e-5) -> torch.Tensor:
     """sqrt with floored argument."""
     return torch.sqrt(torch.clamp_min(x, minimum))
+
+
+def guard_acos(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """acos with argument clamped to ``[-1 + eps, 1 - eps]``; at an end
+    exactly, half the gradient passes (the JAX package's ``clip``, as
+    ``maximum``/``minimum`` split ties)."""
+    lo = torch.full_like(x, -1.0 + eps)
+    hi = torch.full_like(x, 1.0 - eps)
+    return torch.acos(torch.minimum(torch.maximum(x, lo), hi))

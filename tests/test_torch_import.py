@@ -1,8 +1,10 @@
 """The port stands alone: it imports without JAX, names nothing of JAX or
 of the JAX package, and its entry points refuse to run on the CPU unless
-asked."""
+asked.  Its sub-packages export the JAX package's public names."""
 
 import ast
+import importlib
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -58,6 +60,39 @@ def test_no_jax_import(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "prifit_tpu"), (
                 f"{path.name} imports {name}")
+
+
+# the names of a JAX sub-package's ``__all__`` that the port does not
+# export, each with where its work is or the slice that brings it
+NOT_EXPORTED = {
+    ("nn", "PointMLP"): "folded into the function nn/pointnet2.py::point_mlp "
+                        "over its layer's convs and bns",
+    ("data", "shard_for_host"): "the parallelism slice (multi-host data "
+                                "sharding)",
+}
+SUBPACKAGES = ("geometry", "clustering", "ops", "utils", "nn", "models",
+               "train", "data")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_the_jax_names(sub):
+    """Every name of the JAX sub-package's ``__all__`` is in the port's
+    ``__all__`` and bound to an object of the port (a function, class or
+    module of ``prifit_torch``, or a constant), but for
+    ``NOT_EXPORTED``, which stays out."""
+    jax_sub = importlib.import_module(f"prifit_tpu.{sub}")
+    port = importlib.import_module(f"prifit_torch.{sub}")
+    for name in jax_sub.__all__:
+        if (sub, name) in NOT_EXPORTED:
+            assert name not in port.__all__, name
+            continue
+        assert name in port.__all__, f"prifit_torch.{sub} lacks {name}"
+        obj = getattr(port, name)
+        if inspect.ismodule(obj):
+            assert obj.__name__.startswith("prifit_torch."), name
+        elif callable(obj):
+            assert obj.__module__.startswith("prifit_torch."), name
+    assert all(hasattr(port, n) for n in port.__all__)
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

@@ -167,8 +167,8 @@ class LiveRowRecorder:
             nms_out.append(out)
             return out
 
-        def run_candidate(X, bw, iterations, max_num_clusters):
-            out = run(X, bw, iterations, max_num_clusters)
+        def run_candidate(X, bw, *args):
+            out = run(X, bw, *args)
             ids, valid, _ = nms_out[-1]
             key = (X.data_ptr(), tuple((bw ** 2).float().tolist()))
             self.centers[key] = [set(i[v].tolist())
