@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --four-cards   (only the four-card NCCL check)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds every hand-written kernel from ``prifit_torch/kernels/csrc``,
@@ -111,6 +112,25 @@ counts set to 0 just before it and read just after:
     spread; and in the trainer phase an 8-iteration ``train_partseg``
     run with ``--encoder_dtype mx`` (the K-max pair 12 times an
     iteration, ``sr_bf16`` never).
+  - the f32-storage K-max region (``max_region`` phase,
+    ``max_region_phase``; the JAX package's ``PRIFIT_MAX_REGION=on``):
+    kernels #7 and #8 at f32 storage bit for bit against their plain
+    versions at the five SA-scale regions of one f32 step (B=24,
+    N=2048), and refusing other storage dtypes; the f32 supervised step
+    with the region on and off from the same weights (first-step loss
+    and gradients agree; a warm-up and 3 timed steps each; the K-max
+    pair exactly 5 times a step with the region, never without); and a
+    B=2 step with the region, card against CPU.
+  - data and point parallelism (``parallel`` phase, ``parallel_phase``):
+    ``entry.dryrun_multichip`` in one process and on a one-rank NCCL
+    group (the same losses); then two ranks on the one card (NCCL if it
+    takes two ranks on one device, else gloo with host transfers; the
+    phase logs which and why), ``cluster_and_fit_point_sharded`` on
+    4-blob embeddings and two ``--sp_points 2`` self-sup steps at B=24,
+    N=2048 at the default dtype (FPS, gather, the K-max pair under
+    ``mxsr``, bandwidth and NMS on the gathered modes on the card), held
+    against world size 1 and the unsharded clustering and self-sup
+    step.
 
 It checks that every kernel was launched by the paths that run it, and
 no other, and that every cotangent the mean-shift backward gets on the
@@ -146,7 +166,10 @@ It prints:
   - the pretrainer's ms per iteration beside the bare self-sup step and
     per val batch, with the launches of each;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the thirty-two paths (and their sum; ``fitting``, ``library`` and
+    the thirty-six paths (and their sum; ``max_region_f32`` the region's
+    three timed f32 steps, ``parallel_dryrun`` the one-rank NCCL dry run,
+    ``parallel_sp_cluster`` and ``parallel_sp_step`` rank 0's sharded
+    clustering and its second point-SP step; ``fitting``, ``library`` and
     ``dtype_<mode>`` are those phases' runs, ``trainer_mx`` the trainer's
     ``--encoder_dtype mx`` run, ``trainer`` the whole first
     trainer run with its eval, ``pretrainer`` and ``pretrain_val`` the
@@ -172,8 +195,15 @@ It prints:
     gather's rows also their times at the registry's shapes
     (``registry``); the four clustering kernels' rows their numbers at
     the fitting demo's shapes (``fitting``) and the K-max pair's those of
-    one ``mx`` step (``mx``);
+    one ``mx`` step (``mx``) and of one f32 step's region at f32 storage
+    (``f32_storage``);
   - as the last line, ``{"ok": true, "device": {...}}``.
+
+With ``--four-cards`` (a machine with four cards) it builds the kernels
+and runs only ``four_cards``: the dry run at world size 4, a
+data-parallel ``mxsr`` supervised step at B=24, N=2048 over NCCL (6 a
+rank) against one card's on the whole batch, and the point-SP
+clustering and steps on a (1, 4) mesh against world size 1.
 
 Any failed phase raises, so the script exits non-zero without that line.
 Without a CUDA device it exits non-zero before doing anything.
@@ -943,9 +973,9 @@ class record_sr_calls:
         import prifit_torch.nn.mixed as mixed
         self.mixed, self.orig, self.numels = mixed, mixed.sr_bf16, []
 
-        def sr_bf16(key, x):
+        def sr_bf16(key, x, *a):
             self.numels.append(x.numel())
-            return self.orig(key, x)
+            return self.orig(key, x, *a)
 
         mixed.sr_bf16 = sr_bf16
         return self
@@ -3858,9 +3888,613 @@ def log_registry(reg, smi):
             f"[{smi}]")
 
 
+# ------------------------------------------------ the f32-storage K-max
+# region (max_region phase)
+
+# (rows, K, F) of the five K-max regions of an f32 step with the region
+# on: the SA scales only (sa3's group-all chain keeps its autodiff max,
+# as the JAX package's call_max does)
+MAX_REGION_SHAPES = MAX_BWD_SHAPES[:5]
+
+
+def max_bwd_inputs_f32(gen, rows, K, F):
+    """:func:`max_bwd_inputs` in f32 storage: z [rows*K, F] f32 off the
+    bf16 grid, ties planted, the BN affine, zsel and out in f32, g f32."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    scale, mean = randn(F), 0.1 * randn(F)
+    inv = 0.5 + torch.rand((F,), generator=gen, device="cuda")
+    a, c = scale * inv, 0.5 * randn(F)
+    zk = randn(rows, K, F)
+    zsel = torch.where(a > 0, zk.amax(1), zk.amin(1))
+    tie = torch.rand((rows, K, F), generator=gen, device="cuda") < 0.05
+    zk = torch.where(tie, zsel[:, None, :], zk)
+    out = torch.relu(zsel * a + c)
+    return dict(z=zk.reshape(rows * K, F), zsel=zsel, out_bf=out,
+                g=randn(rows, F), scale=scale, mean=mean, inv=inv,
+                n=float(rows * K))
+
+
+def check_max_bwd_f32():
+    """Kernels #7 and #8 at f32 storage (the f32-storage K-max region's
+    z, zsel and out) against their plain versions at the five regions of
+    one f32 step with the region on (B=24, N=2048): cnt, gsm and dz bit
+    for bit; the five calls timed, kernel and plain version.  The bound
+    is bytes: z [rows*K, F] f32 is read once by each pass and dz written
+    once, twice the bf16 bytes."""
+    from prifit_torch.kernels import max_bwd
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    calls = []
+    for shape in MAX_REGION_SHAPES:
+        x = max_bwd_inputs_f32(gen, *shape)
+        args = (x["z"], x["zsel"], x["g"], x["out_bf"], None)
+        cnt, gsm = max_bwd.cnt_gsm(*args)
+        cnt_p, gsm_p = max_bwd.cnt_gsm_plain(*args)
+        if not (torch.equal(cnt, cnt_p) and torch.equal(_bits(gsm),
+                                                        _bits(gsm_p))):
+            raise AssertionError(f"max_bwd_cnt_gsm at f32 storage differs "
+                                 f"from its plain version at {shape}")
+        if gsm.dtype != torch.float32 or not bool((cnt > 1).any()):
+            raise AssertionError(f"f32 storage at {shape}: gsm {gsm.dtype}, "
+                                 f"ties {bool((cnt > 1).any())}")
+        a, c1, c2 = max_bwd_consts(x, cnt, gsm)
+        dargs = (x["z"], x["zsel"], gsm, a, c1, x["mean"], c2, None)
+        dz, dz_p = max_bwd.dz(*dargs), max_bwd.dz_plain(*dargs)
+        if not torch.equal(_bits(dz), _bits(dz_p)):
+            raise AssertionError(
+                f"max_bwd_dz at f32 storage differs from its plain version "
+                f"at {shape}: {int((_bits(dz) != _bits(dz_p)).sum())} of "
+                f"{dz.numel()} elements")
+        calls.append((args, dargs, cnt, gsm, dz))
+        del x, cnt_p, gsm_p, dz_p
+    for bad in (torch.float16, torch.float64):
+        z = calls[0][0][0][:64].to(bad)
+        try:
+            max_bwd.cnt_gsm(z, z[:2], calls[0][0][2][:2], z[:2], None)
+        except ValueError:
+            continue
+        raise AssertionError(f"max_bwd_cnt_gsm took {bad} storage")
+    out = {}
+    for name, fn, plain, reads, writes, per_elem in (
+            ("max_bwd_cnt_gsm", lambda c: max_bwd.cnt_gsm(*c[0]),
+             lambda c: max_bwd.cnt_gsm_plain(*c[0]),
+             lambda c: c[0][:4], lambda c: (c[2], c[3]), 1),
+            ("max_bwd_dz", lambda c: max_bwd.dz(*c[1]),
+             lambda c: max_bwd.dz_plain(*c[1]),
+             lambda c: c[1][:7], lambda c: (c[4],), 6)):
+        ms = cuda_ms(lambda: [fn(c) for c in calls])
+        plain_ms = cuda_ms(lambda: [plain(c) for c in calls], reps=3)
+        byt = sum(nbytes(*reads(c), *writes(c)) for c in calls)
+        ops = sum(per_elem * c[0][0].numel() for c in calls)
+        bound, by = bound_ms(byt, ops)
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None,
+                         mbytes=byt / 1e6)
+    return out
+
+
+def max_region_phase(entry, kernels):
+    """The f32-storage K-max region (``max_region``, the JAX package's
+    ``PRIFIT_MAX_REGION=on``) on the card: kernels #7 and #8 at f32
+    storage against their plain versions at its shapes; the f32
+    supervised step at B=24, N=2048 with the region on and off, from the
+    same weights (dropout off, FPS from index 0): the first step's loss
+    within 1e-5 relative and every gradient within 1e-2 of its norm of
+    the other's (the region's closed-form batch-norm backward sums in
+    another order), then a warm-up and 3 timed steps each, the K-max
+    pair launched exactly 5 times a step with the region (once per SA
+    scale) and never without it; and one B=2 f32 step with the region on
+    the card against the CPU (loss within 1e-5 relative, gradients within
+    5e-2 of the norm, as ``train_card_vs_cpu``)."""
+    from prifit_torch.models.pointnet2_part_seg_msg import get_loss
+    from prifit_torch.train.steps import make_supervised_step
+    ts = entry.TRAIN_SETTINGS
+    kern = check_max_bwd_f32()
+    sup = make_supervised_step(get_loss)
+    steps = {}
+    for on in (True, False):
+        state, points, cls, target = entry.train_flagship(
+            B, N, compute_dtype="f32", max_region=on)
+        state.model.dropout_rate = 0.0
+
+        def run():
+            return sup(state, points, cls, target, ts["lr"],
+                       ts["bn_momentum"])
+
+        kernels.reset_launch_counts()
+        _, m = run()
+        first = dict(loss=m["loss"].item(), counts=kernels.launch_counts(),
+                     grads={n: p.grad.detach().clone()
+                            for n, p in state.model.named_parameters()})
+        r = timed_steps(state, run, kernels, f"f32 max_region={on}")
+        want = 15 if on else 0
+        for c in (r["counts"], {k: 3 * v for k, v in
+                                first["counts"].items()}):
+            if not (c["max_bwd_cnt_gsm"] == c["max_bwd_dz"] == want):
+                raise AssertionError(f"f32 step max_region={on}: the K-max "
+                                     f"pair launched {c} in 3 steps, not "
+                                     f"{want} each")
+            if c["sr_bf16"] or c["fps"] != 6:
+                raise AssertionError(f"f32 step max_region={on}: {c}")
+        r.update(first=first)
+        steps[on] = r
+        del state, points, cls, target
+    a, b = steps[True]["first"], steps[False]["first"]
+    if not abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]):
+        raise AssertionError(f"f32 step loss with the region {a['loss']}, "
+                             f"without {b['loss']}")
+    on_off = _worst_grad_err(a["grads"], b["grads"], "region on vs off")
+    if not on_off <= 1e-2:
+        raise AssertionError(f"f32 step gradients, region on vs off: "
+                             f"largest error {on_off} of the norm")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state, points, cls, target = entry.train_flagship(
+            2, N, device=dev, compute_dtype="f32", max_region=True)
+        state.model.dropout_rate = 0.0
+        _, m = sup(state, points, cls, target, ts["lr"], ts["bn_momentum"])
+        res[dev] = (m["loss"].item(), {n: p.grad.float().cpu() for n, p in
+                                       state.model.named_parameters()})
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    if not abs(lg - lc) <= 1e-5 * abs(lc):
+        raise AssertionError(f"max_region B=2 step loss card {lg} cpu {lc}")
+    cvc = _worst_grad_err(gg, gc, "max_region card vs cpu")
+    if not cvc <= 5e-2:
+        raise AssertionError(f"max_region B=2 step gradients card vs cpu: "
+                             f"largest error {cvc} of the norm")
+    return dict(kernels=kern, steps=steps, on_off_err=on_off,
+                card_vs_cpu=(lg, lc, cvc),
+                counts=steps[True]["counts"])
+
+
+def log_max_region(mr, smi):
+    for name, k in mr["kernels"].items():
+        log(f"{name} at f32 storage (the five regions of one f32 step with "
+            f"max_region, B={B} N={N}): max_abs_err {k['max_abs_err']:.3g} "
+            f"kernel_ms {k['ms']:.4f} plain_ms {k['plain_ms']:.4f} "
+            f"bound_ms {k['bound_ms']:.4f} ({k['bound_by']}, "
+            f"{k['mbytes']:.0f} MB) [{smi}]")
+    for on, r in mr["steps"].items():
+        t = sorted(r["times"])[1]
+        log(f"max_region phase: f32 supervised step B={B} N={N} region "
+            f"{'on' if on else 'off'}: {t * 1e3:.1f} ms (median of 3; "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in r['times'])}) [{smi}]; "
+            f"peak memory {r['peak'] / 2**30:.2f} GiB; launches in 3 steps "
+            f"{r['counts']}")
+    lg, lc, err = mr["card_vs_cpu"]
+    log(f"max_region phase: first-step gradients region on vs off, largest "
+        f"error {mr['on_off_err']:.3g} of the norm; B=2 f32 step with the "
+        f"region card vs cpu: loss {lg:.7f} / {lc:.7f}, largest gradient "
+        f"error {err:.3g} of the norm")
+
+
+# ------------------------------------------- data and point parallelism
+# (parallel phase)
+
+SP_KW = dict(quantile=0.05, msc_iterations=10, max_num_clusters=25,
+             n_per_prim=256)
+PARALLEL_DIR = os.path.join(ROOT, "log", "parallel")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _init_group(backend, port, rank, world):
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+
+
+def _nccl_probe(rank, port, errors):
+    """One NCCL all-reduce and one ring exchange between two ranks on
+    device 0; what NCCL raised goes to the ``errors`` queue."""
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from prifit_torch.parallel.collectives import ppermute
+    try:
+        _init_group("nccl", port, rank, 2)
+        t = torch.ones(4, device="cuda") * (rank + 1)
+        dist.all_reduce(t)
+        y = ppermute(t, dist.group.WORLD, 1)
+        torch.cuda.synchronize()
+        if not (float(t[0]) == 3.0 and float(y[0]) == 3.0):
+            raise RuntimeError(f"wrong sums {t.tolist()} {y.tolist()}")
+        dist.destroy_process_group()
+    except Exception as e:          # noqa: BLE001 - reported, then refused
+        lines = [ln for ln in str(e).splitlines() if ln.strip()]
+        errors.put(lines[-1] if lines else type(e).__name__)
+        sys.exit(1)
+
+
+def two_rank_backend():
+    """``nccl`` if two NCCL ranks on the one card can all-reduce and pass
+    a ring (checked in two processes with a 120 s limit), else ``gloo``
+    (its collectives take CUDA tensors through host memory,
+    ``collectives.through_host``); and what the NCCL attempt gave."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port, errors = _free_port(), ctx.Queue()
+    procs = [ctx.Process(target=_nccl_probe, args=(r, port, errors))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + 120
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if not alive and codes == [0, 0]:
+        return "nccl", "NCCL took two ranks on one device"
+    said = set()
+    while not errors.empty():
+        said.add(errors.get())
+    return "gloo", (f"NCCL refused two ranks on one device: "
+                    f"{'; '.join(sorted(said)) or 'no message'} (exit codes "
+                    f"{codes}{', timed out' if alive else ''})")
+
+
+def _sp_inputs(entry, dev):
+    """The point-SP inputs at B=24, N=2048: the flagship's train state
+    (default dtype, dropout off) and cloud, and blob embeddings and
+    points for the sharded clustering."""
+    state, points, cls, _ = entry.train_flagship(B, N, device=dev)
+    state.model.dropout_rate = 0.0
+    emb, xyz = entry.blob_embeddings(B, N)
+    return state, points, cls, torch.as_tensor(emb, device=dev), \
+        torch.as_tensor(xyz, device=dev)
+
+
+def _sp_run(entry, kernels, mesh):
+    """``cluster_and_fit_point_sharded`` on the blob embeddings and two
+    point-SP self-sup steps (``make_selfsup_step_point_sp``, the
+    ``--sp_points`` step; the second timed, with the launch counts reset
+    just before), on ``mesh``."""
+    from prifit_torch.parallel.point_sp import cluster_and_fit_point_sharded
+    from prifit_torch.train.steps import make_selfsup_step_point_sp
+    ts = entry.TRAIN_SETTINGS
+    state, points, cls, emb, xyz = _sp_inputs(entry, "cuda")
+    kernels.reset_launch_counts()
+    res, prims = cluster_and_fit_point_sharded(
+        emb, xyz, mesh=mesh, quantile=0.05, iterations=10,
+        max_num_clusters=25)
+    torch.cuda.synchronize()
+    fit_counts = kernels.launch_counts()
+    step = make_selfsup_step_point_sp(mesh=mesh, **SP_KW)
+    gen = torch.Generator(device="cuda")
+    losses, times = [], []
+    for i in range(2):
+        gen.manual_seed(5 + i)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, points, cls, points, ts["lr"], ts["bn_momentum"],
+                    ts["lmbda"], gen, sr_key=entry.DRYRUN_KEY)
+        losses.append(m["ss_loss"].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return dict(
+        weights=res.weights.cpu(), valid=res.valid.cpu(),
+        nc=res.num_clusters.tolist(), bw=res.bandwidth.cpu(),
+        r=prims.r.detach().cpu(), center=prims.center.detach().cpu(),
+        fit_counts=fit_counts, step_counts=kernels.launch_counts(),
+        losses=losses, step_ms=times[1] * 1e3,
+        params=torch.cat([p.detach().reshape(-1).cpu()
+                          for p in state.model.parameters()]),
+        peak=torch.cuda.max_memory_allocated())
+
+
+def _parallel_rank(rank, backend, port, out_dir):
+    """One of the two ranks of the parallel phase: the point-SP run on a
+    (1, 2) mesh, its results saved for the parent."""
+    sys.path.insert(0, ROOT)
+    import prifit_torch.entry as entry
+    from prifit_torch import kernels
+    from prifit_torch.parallel.point_sp import make_dp_sp_mesh
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _init_group(backend, port, rank, 2)
+    try:
+        out = _sp_run(entry, kernels, make_dp_sp_mesh(1, 2))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _slot_match(w_got, v_got, w_ref, v_ref, what):
+    """Per shape, the permutation of the valid slots that matches the
+    weights ``w_got`` to ``w_ref`` (their columns' cosine), which must
+    be a permutation; returns the per-shape permutations."""
+    perms = []
+    for b in range(w_got.shape[0]):
+        gv, rv = v_got[b], v_ref[b]
+        if int(gv.sum()) != int(rv.sum()):
+            raise AssertionError(f"{what}: shape {b} has {int(gv.sum())} "
+                                 f"clusters, the reference {int(rv.sum())}")
+        gw, rw = w_got[b][:, gv], w_ref[b][:, rv]
+        gn = gw / (gw.norm(dim=0, keepdim=True) + 1e-12)
+        rn = rw / (rw.norm(dim=0, keepdim=True) + 1e-12)
+        perm = (gn.T @ rn).argmax(0)
+        if len(set(perm.tolist())) != len(perm):
+            raise AssertionError(f"{what}: shape {b}'s slots do not match")
+        perms.append(perm)
+    return perms
+
+
+def parallel_phase(entry, kernels):
+    """Data and point parallelism on the card.
+
+    1. The dry run (``entry.dryrun_multichip``: a data-parallel
+       supervised and self-sup step, ``cluster_and_fit_point_sharded``
+       and a point-SP step, at the default dtype) in one process with no
+       process group and on a one-rank NCCL group: the same losses
+       (1e-5 relative) and slot counts.
+    2. Two ranks on the one card (NCCL if it takes them, else gloo with
+       host transfers): ``cluster_and_fit_point_sharded`` on 4-blob
+       embeddings at B=24, N=2048 and two ``--sp_points 2`` self-sup
+       steps at B=24, N=2048 (the flagship at ``mxsr``, quantile 0.05,
+       10 mean-shift steps, 25 slots, 256 samples a primitive), every
+       kernel of that path on the card; both ranks hold the same fit and
+       parameters; against the same run at world size 1 (a (1, 1) mesh
+       in this process): slot counts equal, weights (1e-4), radii and
+       centers (1e-3) after slot matching, step losses within 1e-4
+       relative; the fit against the unsharded clustering
+       (``cluster_batch`` with its kernels, one bandwidth candidate) and
+       ``fit_ellipsoids_batch``, and the first step's loss against the
+       unsharded self-sup step's (``make_selfsup_step`` with one
+       bandwidth candidate; its mean-shift is the 3xTF32 kernel, the
+       ring's a plain f32 matmul: 1e-3 relative)."""
+    import torch.distributed as dist
+    from prifit_torch.clustering.mean_shift import cluster_batch
+    from prifit_torch.geometry.fitting import fit_ellipsoids_batch
+    from prifit_torch.parallel.point_sp import make_dp_sp_mesh
+    from prifit_torch.train.steps import make_selfsup_step
+    out = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    plain = entry.dryrun_multichip("cuda")
+    out["dry_plain_s"] = time.perf_counter() - t0
+    _init_group("nccl", _free_port(), 0, 1)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        one = entry.dryrun_multichip("cuda")
+        out["dry_nccl_s"] = time.perf_counter() - t0
+        out["dry_counts"] = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    for k in ("sup_loss", "ss_loss", "sp_loss"):
+        if not abs(one[k] - plain[k]) <= 1e-5 * abs(plain[k]):
+            raise AssertionError(f"dry run {k}: one-rank NCCL {one[k]}, no "
+                                 f"group {plain[k]}")
+    if one["sp_clusters"] != plain["sp_clusters"] or min(
+            one["sp_clusters"]) < 3:
+        raise AssertionError(f"dry run clusters {one['sp_clusters']} / "
+                             f"{plain['sp_clusters']}")
+    out["dry"] = {k: (one[k], plain[k]) for k in
+                  ("sup_loss", "ss_loss", "sp_loss", "sp_clusters")}
+
+    backend, why = two_rank_backend()
+    out["backend"], out["backend_why"] = backend, why
+    log(f"parallel phase: two ranks on one device use {backend} ({why})")
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_parallel_rank,
+                                args=(backend, _free_port(), PARALLEL_DIR),
+                                nprocs=2, join=True)
+    out["two_rank_s"] = time.perf_counter() - t0
+    r0, r1 = (torch.load(os.path.join(PARALLEL_DIR, f"rank{r}.pt"))
+              for r in range(2))
+    for k in ("nc", "losses"):
+        if r0[k] != r1[k]:
+            raise AssertionError(f"two ranks differ in {k}: {r0[k]} "
+                                 f"{r1[k]}")
+    for k in ("r", "center", "params"):
+        if not torch.equal(r0[k], r1[k]):
+            raise AssertionError(f"two ranks differ in {k}")
+    counts = r0["step_counts"]
+    for k in ("fps", "gather", "max_bwd_cnt_gsm", "max_bwd_dz", "sr_bf16"):
+        if counts[k] == 0:
+            raise AssertionError(f"the point-SP step never launched {k}: "
+                                 f"{counts}")
+    if r0["fit_counts"]["nms"] == 0 or r0["fit_counts"]["bandwidth"] == 0:
+        raise AssertionError(f"the sharded clustering launched "
+                             f"{r0['fit_counts']}")
+    if counts["max_bwd_cnt_gsm"] != 6 or counts["fps"] != 2:
+        raise AssertionError(f"point-SP step launches {counts}")
+
+    # world size 1, and the unsharded pipelines, in this process
+    ref = _sp_run(entry, kernels, make_dp_sp_mesh(1, 1))
+    w0 = torch.cat([r0["weights"], r1["weights"]], dim=1)
+    _, _, _, emb, xyz = _sp_inputs(entry, "cuda")
+    unsh = cluster_batch(emb, quantile=0.05, iterations=10,
+                         max_num_clusters=25, num_candidates=1)
+    unsh_fit = fit_ellipsoids_batch(xyz, unsh.weights, unsh.valid)
+    errs = {}
+    for what, (w_ref, v_ref, r_ref, c_ref) in (
+            ("world 1", (ref["weights"], ref["valid"], ref["r"],
+                         ref["center"])),
+            ("unsharded", (unsh.weights.cpu(), unsh.valid.cpu(),
+                           unsh_fit.r.detach().cpu(),
+                           unsh_fit.center.detach().cpu()))):
+        perms = _slot_match(w0, r0["valid"], w_ref, v_ref, what)
+        e = [0.0, 0.0, 0.0]
+        for b, perm in enumerate(perms):
+            gv, rv = r0["valid"][b], v_ref[b]
+            e[0] = max(e[0], float((w0[b][:, gv][:, perm]
+                                    - w_ref[b][:, rv]).abs().max()))
+            e[1] = max(e[1], float((r0["r"][b][gv][perm]
+                                    - r_ref[b][rv]).abs().max()))
+            e[2] = max(e[2], float((r0["center"][b][gv][perm]
+                                    - c_ref[b][rv]).abs().max()))
+        if not (e[0] <= 1e-4 and e[1] <= 1e-3 and e[2] <= 1e-3):
+            raise AssertionError(f"two-rank fit against {what}: weights, "
+                                 f"radii, centers off by {e}")
+        errs[what] = e
+    for i, (a, b) in enumerate(zip(r0["losses"], ref["losses"])):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"point-SP step {i} loss: two ranks {a}, "
+                                 f"world 1 {b}")
+    ts = entry.TRAIN_SETTINGS
+    state, points, cls, _, _ = _sp_inputs(entry, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kw = {k: SP_KW[k] for k in ("quantile", "max_num_clusters",
+                                "n_per_prim")}
+    _, m = make_selfsup_step(msc_iterations=SP_KW["msc_iterations"],
+                             num_bandwidth_candidates=1, **kw)(
+        state, points, cls, points, ts["lr"], ts["bn_momentum"],
+        ts["lmbda"], gen, sr_key=entry.DRYRUN_KEY)
+    unsh_loss = m["ss_loss"].item()
+    if not abs(r0["losses"][0] - unsh_loss) <= 1e-3 * abs(unsh_loss):
+        raise AssertionError(f"point-SP step loss {r0['losses'][0]}, the "
+                             f"unsharded self-sup step's {unsh_loss}")
+    out.update(two=r0, ref=ref, errs=errs, unsh_loss=unsh_loss,
+               counts=counts, fit_counts=r0["fit_counts"])
+    return out
+
+
+def log_parallel(par, smi):
+    d = par["dry"]
+    log(f"parallel phase: dry run (B=2, N=512) one-rank NCCL vs no group: "
+        f"{ {k: v for k, v in d.items()} }; {par['dry_nccl_s']:.1f} s / "
+        f"{par['dry_plain_s']:.1f} s; launches {par['dry_counts']}")
+    two, ref = par["two"], par["ref"]
+    log(f"parallel phase: two ranks ({par['backend']}) at B={B} N={N}: "
+        f"sharded clustering num_clusters {two['nc']}, fit against world 1 "
+        f"and unsharded (weights, radii, centers max abs err) "
+        f"{par['errs']}; point-SP step losses {two['losses']} (world 1 "
+        f"{ref['losses']}, unsharded self-sup step {par['unsh_loss']:.7f}); "
+        f"second step {two['step_ms']:.1f} ms a rank (world 1 "
+        f"{ref['step_ms']:.1f} ms) [{smi}]; peak memory a rank "
+        f"{two['peak'] / 2**30:.2f} GiB; the two-rank run "
+        f"{par['two_rank_s']:.1f} s; launches of the clustering "
+        f"{par['fit_counts']}, of one point-SP step {par['counts']}")
+
+
+# ------------------------------------------ four cards (--four-cards)
+
+FOUR_DIR = os.path.join(ROOT, "log", "four_cards")
+
+
+def _dp_sup_run(entry, group=None, rank=0, world=1):
+    """Four ``mxsr`` supervised steps at B=24, N=2048 from the seed-0
+    weights (dropout off, FPS from index 0, one rounding key), each rank
+    on its ``B / world`` shard: the losses and the median of the last
+    three steps' ms."""
+    from prifit_torch.models.pointnet2_part_seg_msg import get_loss
+    from prifit_torch.nn.norm import set_process_group
+    from prifit_torch.train.steps import make_supervised_step
+    ts = entry.TRAIN_SETTINGS
+    state, points, cls, target = entry.train_flagship(B, N)
+    state.model.dropout_rate = 0.0
+    b = B // world
+    p, c, t = (x[rank * b:(rank + 1) * b] for x in (points, cls, target))
+    set_process_group(state.model, group)
+    step = make_supervised_step(get_loss)
+    losses, times = [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, p, c, t, ts["lr"], ts["bn_momentum"],
+                    sr_key=entry.DRYRUN_KEY)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return dict(losses=losses, ms=sorted(times[1:])[1] * 1e3)
+
+
+def _four_rank(rank, port):
+    """One of four ranks, one card each, on NCCL: the dry run, the
+    data-parallel supervised steps and the point-SP run on a (1, 4)
+    mesh."""
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    import prifit_torch.entry as entry
+    from prifit_torch import kernels
+    from prifit_torch.parallel.point_sp import make_dp_sp_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=4)
+    try:
+        dry = entry.dryrun_multichip("cuda")
+        dry = {k: dry[k] for k in ("sup_loss", "ss_loss", "sp_loss",
+                                   "sp_clusters", "sp_mesh")}
+        sup = _dp_sup_run(entry, dist.group.WORLD, rank, 4)
+        sp = _sp_run(entry, kernels, make_dp_sp_mesh(1, 4))
+        torch.save(dict(dry=dry, sup=sup, sp=sp),
+                   os.path.join(FOUR_DIR, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def four_cards(entry, kernels, smi):
+    """Data and point parallelism across four cards on NCCL (``python3
+    chip_smoke.py --four-cards``): the dry run at world size 4; the
+    data-parallel ``mxsr`` supervised step at B=24, N=2048 (6 a rank)
+    against one card's on the whole batch (the first step's loss within
+    1e-4 relative; later steps drift apart, bf16 storage being chaotic);
+    and the point-SP clustering and steps on a (1, 4) mesh against world
+    size 1 (slot counts, weights within 1e-4 after slot matching, losses
+    within 1e-4).  Every rank holds the same losses and parameters."""
+    from prifit_torch.parallel.point_sp import make_dp_sp_mesh
+    if torch.cuda.device_count() < 4:
+        raise SystemExit(f"--four-cards needs 4 cards, "
+                         f"{torch.cuda.device_count()} found")
+    os.makedirs(FOUR_DIR, exist_ok=True)
+    one_sup = _dp_sup_run(entry)
+    one_sp = _sp_run(entry, kernels, make_dp_sp_mesh(1, 1))
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_four_rank, args=(_free_port(),), nprocs=4)
+    log(f"four ranks ran in {time.perf_counter() - t0:.1f} s")
+    rs = [torch.load(os.path.join(FOUR_DIR, f"rank{r}.pt"))
+          for r in range(4)]
+    for r in rs[1:]:
+        if (r["dry"] != rs[0]["dry"] or r["sup"]["losses"] !=
+                rs[0]["sup"]["losses"] or r["sp"]["losses"] !=
+                rs[0]["sp"]["losses"] or not torch.equal(
+                    r["sp"]["params"], rs[0]["sp"]["params"])):
+            raise AssertionError("the four ranks differ")
+    d = rs[0]["dry"]
+    log(f"four cards (NCCL), dry run (B=8, N=512, point-SP mesh "
+        f"{d['sp_mesh']}): sup {d['sup_loss']:.7f}, ss {d['ss_loss']:.7f}, "
+        f"sp {d['sp_loss']:.7f}, clusters {d['sp_clusters']}")
+    a, b = rs[0]["sup"]["losses"][0], one_sup["losses"][0]
+    if not abs(a - b) <= 1e-4 * abs(b):
+        raise AssertionError(f"four-card supervised loss {a}, one card {b}")
+    log(f"four cards, data-parallel mxsr supervised step B={B} N={N} "
+        f"({B // 4} a rank): {rs[0]['sup']['ms']:.1f} ms (one card "
+        f"{one_sup['ms']:.1f}) [{smi}]; losses {rs[0]['sup']['losses']} "
+        f"(one card {one_sup['losses']})")
+    w = torch.cat([r["sp"]["weights"] for r in rs], dim=1)
+    v = rs[0]["sp"]["valid"]
+    perms = _slot_match(w, v, one_sp["weights"], one_sp["valid"],
+                        "four cards vs one")
+    err = max(float((w[i][:, v[i]][:, p] - one_sp["weights"][i][
+        :, one_sp["valid"][i]]).abs().max()) for i, p in enumerate(perms))
+    if err > 1e-4:
+        raise AssertionError(f"four-card point-SP weights off by {err}")
+    for a, b in zip(rs[0]["sp"]["losses"], one_sp["losses"]):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"four-card point-SP loss {a}, world 1 {b}")
+    log(f"four cards, point-SP (1, 4) at B={B} N={N}: clusters "
+        f"{rs[0]['sp']['nc']}, weights {err:.3g} off world 1's; losses "
+        f"{rs[0]['sp']['losses']} (world 1 {one_sp['losses']}); second "
+        f"step {rs[0]['sp']['step_ms']:.1f} ms a rank (one card "
+        f"{one_sp['step_ms']:.1f}) [{smi}]; launches of that step "
+        f"{rs[0]['sp']['step_counts']}")
+
+
 EXTRA_KEYS = ("sparse", "inputs", "device_ms", "int32_ms", "bound_f32_ms",
               "equal_rows_ms", "per_call_ms", "us_per_step", "launch_shapes",
-              "registry", "fitting", "mx")
+              "registry", "fitting", "mx", "f32_storage")
 # what each kernel phase times
 CALLS_OF = {"mean_shift_bwd": "one self-sup step",
             "max_bwd_cnt_gsm": "one mxsr train step",
@@ -4014,16 +4648,20 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
+    smi_all = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
+        check=True, timeout=60).stdout.strip().splitlines()
+    smi = smi_all[0]
+    log(" | ".join(smi_all))
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
     build_s = kernels.build_all()
     log(f"kernels built in {build_s:.1f} s")
+    if sys.argv[1:] == ["--four-cards"]:
+        four_cards(entry, kernels, smi)
+        return
 
     results = {}
     results["fps"] = check_fps()
@@ -4123,6 +4761,14 @@ def main():
     log_library(lib, smi)
     dts = dtype_phase(entry, kernels)
     log_dtypes(dts, train, smi)
+    mr = max_region_phase(entry, kernels)
+    log_max_region(mr, smi)
+    for name, k in mr["kernels"].items():
+        results[name]["f32_storage"] = {
+            key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")}
+    par = parallel_phase(entry, kernels)
+    log_parallel(par, smi)
     tc = train_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
         f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
@@ -4200,6 +4846,10 @@ def main():
     paths.update({f"dtype_{mode}": _sum_counts(
         [r["supervised"]["counts"], r["selfsup"]["counts"]])
         for mode, r in dts.items()})
+    paths["max_region_f32"] = mr["counts"]
+    paths["parallel_dryrun"] = par["dry_counts"]
+    paths["parallel_sp_cluster"] = par["fit_counts"]
+    paths["parallel_sp_step"] = par["counts"]
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]

@@ -5,10 +5,13 @@ defaults and choices (reference ``args_parser.py:3-85`` plus the JAX
 package's additions at the bottom: ``--data_root``, ``--n_per_prim``,
 ``--chamfer_npoints`` and the rest).  ``--gpu`` and ``--cudnn_off`` are
 accepted and unused; the device is the entry point's ``device`` argument
-(CUDA unless a caller names another).
+(CUDA unless a caller names another).  ``args.max_region`` is not a
+flag: it is ``PRIFIT_MAX_REGION=on`` in the environment, as the JAX
+package reads it.
 """
 
 import argparse
+import os
 
 
 def parse_args(argv=None):
@@ -117,8 +120,8 @@ def parse_args(argv=None):
              "structure of a joint run for matched-budget comparisons")
     add("--sp_points", type=int, default=1,
         help="shard the self-sup point axis over this many devices "
-             "(ring mean-shift + psum fitting).  1 = batch-only; the "
-             "port raises for more until point parallelism is ported")
+             "(ring mean-shift + psum fitting; one rank per device under "
+             "torchrun).  1 = batch-only")
     add("--stage_dtypes", type=str, default="",
         help="per-encoder-stage dtype overrides for the bf16 bisection, "
              "e.g. 'sa1:bf16,fp2:q' (bf16 = stage MLP in bf16; q = f32 "
@@ -138,4 +141,7 @@ def parse_args(argv=None):
     args = parser.parse_args(argv)
     if args.split is not None:
         args.train_split = args.split
+    # the JAX package's PRIFIT_MAX_REGION=on (nn/pointnet2.py::call_max),
+    # read here once so that one command line does the same in both
+    args.max_region = os.environ.get("PRIFIT_MAX_REGION", "off") == "on"
     return args

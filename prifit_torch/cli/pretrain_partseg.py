@@ -50,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from prifit_torch.cli import dp
 from prifit_torch.cli.args_parser import parse_args
 from prifit_torch.cli.train_partseg import (
     build_model,
@@ -66,6 +67,9 @@ from prifit_torch.data import (
 )
 from prifit_torch.eval.svm_probe import make_feature_forward, svm_probe
 from prifit_torch.models import get_module
+from prifit_torch.nn.norm import set_process_group
+from prifit_torch.parallel import make_data_mesh, \
+    maybe_initialize_distributed, replicate
 from prifit_torch.train.checkpoint import save_checkpoint
 from prifit_torch.train.schedules import bn_momentum_schedule, lr_schedule
 from prifit_torch.train.state import create_train_state
@@ -199,7 +203,7 @@ def build_step(args, mod):
     """The self-sup step of ``args``: the convex loss, or the contrastive
     loss under ``--ss_loss contrastive``; both take ``(state, points,
     cls_onehot, chamfer points or component labels, lr, bn_momentum,
-    lmbda, generator)``."""
+    lmbda, generator)``, data-parallel over the model's group."""
     if args.ss_loss == "contrastive":
         return make_contrastive_step(mod.get_selfsup_loss,
                                      margin=args.margin)
@@ -248,11 +252,18 @@ def main(args, device=None, on_iteration=None, on_val_batch=None,
     result."""
     device = resolve_device(device)
     check_supported(args)
+    maybe_initialize_distributed()
+    mesh = make_data_mesh(args.batch_size)
+    if not mesh.member:
+        return None
+    main_rank = dp.is_main()
     exp_dir = osp.join(args.experiment_root,
                        "pretrain_" + experiment_name(args))
     ckpt_dir = osp.join(exp_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
-    log = setup_logger("pretrain", osp.join(exp_dir, "pretrain.log"))
+    log = dp.quiet(setup_logger("pretrain", osp.join(exp_dir,
+                                                     "pretrain.log"))
+                   if main_rank else None)
     log(f"PARAMETERS: {vars(args)}")
     probe_loaders = modelnet_loaders(args, log)
 
@@ -260,8 +271,9 @@ def main(args, device=None, on_iteration=None, on_val_batch=None,
     ss_train, ss_val = acd_split(args)
     log(f"self-sup train {len(ss_train)} / val {len(ss_val)}")
     train_loader = DataLoader(
-        ss_train, args.batch_size, shuffle=True, seed=args.seed,
-        chamfer_npoints=args.chamfer_npoints, num_workers=args.num_workers)
+        ss_train, shuffle=True, seed=args.seed,
+        chamfer_npoints=args.chamfer_npoints, num_workers=args.num_workers,
+        **dp.loader_shard(mesh, args.batch_size))
     val_loader = DataLoader(ss_val, args.batch_size, shuffle=False,
                             chamfer_npoints=args.chamfer_npoints)
 
@@ -273,50 +285,61 @@ def main(args, device=None, on_iteration=None, on_val_batch=None,
     model = build_model(argparse.Namespace(**dict(vars(args),
                                                   reconstruct=False)),
                         mod, device)
+    replicate(mesh, model)
+    set_process_group(model, mesh.group("data"))
     state = create_train_state(model, optimizer=args.optimizer,
                                decay_rate=args.decay_rate)
     ss_step = build_step(args, mod)
     lmbda = args.lmbda if args.ss_loss == "contrastive" else 1.0
-    generator = torch.Generator(device=device)
+    generator, reseed, sr_key = dp.rank_generator(device, mesh)
     transform = batch_transform(args, rng)
 
     best_val = float("inf")
     metrics_path = osp.join(exp_dir, "metrics.jsonl")
     # tensorboard scalars (reference pretrain:126,363-368,402)
-    tb = ScalarWriter(exp_dir)
+    tb = ScalarWriter(exp_dir) if main_rank else None
     for epoch in range(args.epoch):
         t0 = time.time()
-        generator.manual_seed(args.seed * 1000003 + epoch)
+        reseed(args.seed * 1000003 + epoch)
         lr = lr_schedule(epoch, args.learning_rate, args.lr_decay,
                          args.step_size, args.lr_clip)
         momentum = bn_momentum_schedule(epoch, args.step_size)
         log(f"Epoch {epoch + 1}/{args.epoch}: lr {lr:.6f}")
 
         losses = []
-        for i, batch in enumerate(prefetch_to_device(
-                train_loader, transform=transform, device=device)):
-            state, m = ss_step(state, *batch, lr, momentum, lmbda,
-                               generator)
+        # global batches an epoch: every rank runs the same count
+        stream = prefetch_to_device(train_loader, transform=transform,
+                                    device=device)
+        for i in range(len(ss_train) // args.batch_size):
+            state, m = ss_step(state, *next(stream), lr, momentum, lmbda,
+                               generator, sr_key())
             losses.append(m["ss_loss"])
             if on_iteration is not None:
                 on_iteration(epoch, i)
+        stream.close()
         # one read of the epoch's losses to the host
         losses = torch.stack(losses).tolist()
-        for i, loss in enumerate(losses):
-            tb.scalar("selfsup_loss_iter", loss,
-                      epoch * len(train_loader) + i + 1)
         train_loss = float(np.mean(losses))
-        tb.scalar("selfsup_loss_epoch", train_loss, epoch)
-        tb.scalar("train_lr", lr, epoch)
-        tb.scalar("train_bn_momentum", momentum, epoch)
-
         val_loss = validation_loss(
             model, mod, val_loader, args, rng, generator, device,
             on_batch=None if on_val_batch is None
             else lambda vi: on_val_batch(epoch, vi))
-        tb.scalar("selfsup_loss_val", val_loss, epoch)
         log(f"Epoch {epoch + 1} done in {time.time() - t0:.1f}s: "
             f"train loss {train_loss:.5f} val loss {val_loss:.5f}")
+        probe = modelnet_probe(model, probe_loaders, args, device, log) \
+            if probe_loaders is not None else None
+        if probe is not None and on_probe is not None:
+            on_probe(epoch, probe)
+        if not main_rank:
+            best_val = min(best_val, val_loss)
+            continue
+        for i, loss in enumerate(losses):
+            tb.scalar("selfsup_loss_iter", loss,
+                      epoch * len(losses) + i + 1)
+        tb.scalar("selfsup_loss_epoch", train_loss, epoch)
+        tb.scalar("train_lr", lr, epoch)
+        tb.scalar("train_bn_momentum", momentum, epoch)
+        tb.scalar("selfsup_loss_val", val_loss, epoch)
 
         extra = {"train_loss": train_loss, "val_loss": val_loss}
         if (epoch + 1) % 5 == 0:  # every 5 epochs (pretrain:428)
@@ -329,16 +352,14 @@ def main(args, device=None, on_iteration=None, on_val_batch=None,
             log(f"New best val loss {val_loss:.5f}; saved best_model")
         epoch_metrics = {"epoch": epoch, "train_loss": train_loss,
                          "val_loss": val_loss, "lr": lr}
-        if probe_loaders is not None:
-            probe = modelnet_probe(model, probe_loaders, args, device, log)
+        if probe is not None:
             epoch_metrics["modelnet_svm_acc"] = probe["accuracy"]
             tb.scalar("modelnet_val", probe["accuracy"], epoch)
-            if on_probe is not None:
-                on_probe(epoch, probe)
         with open(metrics_path, "a") as f:
             f.write(json.dumps(epoch_metrics) + "\n")
         tb.flush()
-    tb.close()
+    if tb is not None:
+        tb.close()
     return best_val
 
 

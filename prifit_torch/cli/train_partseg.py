@@ -9,7 +9,13 @@ auto-resume and the final mIoU evaluation.  The flags are the JAX
 package's, with its defaults (:mod:`prifit_torch.cli.args_parser`).
 
 Execution: the steps of :mod:`prifit_torch.train.steps` run eagerly on
-one CUDA device (``main(args, device="cpu")`` runs them on the CPU).
+one CUDA device (``main(args, device="cpu")`` runs them on the CPU), or
+data-parallel on one device per process under ``torchrun``
+(:mod:`prifit_torch.cli.dp`: ``--batch_size`` is the global batch, each
+rank loads its shard, rank 0 writes the outputs).  ``--sp_points P``
+shards the self-sup step's point axis over P ranks of a 2-D ``(data,
+points)`` mesh (:func:`prifit_torch.train.steps.
+make_selfsup_step_point_sp`), with the JAX trainer's divisibility checks.
 Batches are read and augmented on the host (numpy, the JAX package's
 draws, so the batches are the JAX trainer's bit for bit) in background
 threads, and copied to the device on a side stream two batches ahead of
@@ -29,8 +35,7 @@ containing it, with ``--dgcnn_k`` neighbours) and ``reconstruction``.
 Under ``--selfsup`` a model with no convex loss (SSG, PointNet,
 reconstruction) takes the self-sup step with a zero loss, as the JAX
 trainer does: Adam's weight decay and the batch-norm statistics still
-move.  Not ported yet, and refused with ``NotImplementedError``:
-``--sp_points`` above 1 (ROADMAP.md §1 item 5).  The classification and
+move.  The classification and
 semantic-segmentation models of the registry are refused with a
 ``TypeError``, as the JAX trainer fails on them.  ``--pretrained_model``
 takes the pretrainer's checkpoints
@@ -42,6 +47,12 @@ Usage (canonical recipe, README.md:60-63):
       --epoch 20 --learning_rate 0.01 --lmbda 1 --quantile 0.05 \\
       --msc_iterations 10 --max_num_clusters 25 \\
       --data_root <shapenet> --ss_path <acd>
+  torchrun --nproc_per_node=2 -m prifit_torch.cli.train_partseg \\
+      --sp_points 2 ...   (the same flags; point-axis parallelism)
+
+``PRIFIT_MAX_REGION=on`` (read once, at argument parsing, as the JAX
+trainer reads it) turns on the SA scales' closed-form K-max region
+outside ``mx``/``mxsr`` (``args.max_region``).
 """
 
 import itertools
@@ -55,6 +66,7 @@ import numpy as np
 import torch
 
 from prifit_torch import native
+from prifit_torch.cli import dp
 from prifit_torch.cli.args_parser import parse_args
 from prifit_torch.data import (
     ACDSelfSupDataset,
@@ -67,6 +79,13 @@ from prifit_torch.data import (
 from prifit_torch.entry import init_weights
 from prifit_torch.eval.miou import evaluation, make_eval_forward
 from prifit_torch.models import PART_SEG, get_module
+from prifit_torch.nn.norm import process_group_of, set_process_group
+from prifit_torch.parallel import (
+    make_data_mesh,
+    maybe_initialize_distributed,
+    replicate,
+)
+from prifit_torch.parallel.collectives import average_gradients
 from prifit_torch.train.checkpoint import (
     restore_checkpoint,
     restore_params_only,
@@ -81,6 +100,7 @@ from prifit_torch.train.state import create_train_state
 from prifit_torch.train.steps import (
     make_contrastive_step,
     make_selfsup_step,
+    make_selfsup_step_point_sp,
     make_supervised_step,
 )
 from prifit_torch.utils.device import resolve_device
@@ -123,14 +143,9 @@ def experiment_name(args) -> str:
 
 
 def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` for the flags the port cannot run
-    yet, naming the ROADMAP.md item that ports them, and ``TypeError``
-    for a registry model that is not a part-seg model: the JAX trainer
-    passes those part-seg arguments, which they do not take."""
-    if args.sp_points > 1:
-        raise NotImplementedError(
-            f"--sp_points {args.sp_points}: point-axis parallelism is not "
-            f"ported yet (ROADMAP.md §1 item 5)")
+    """Raise ``TypeError`` for a registry model that is not a part-seg
+    model: the JAX trainer passes those part-seg arguments, which they do
+    not take."""
     if get_module(args.model).__name__.rsplit(".", 1)[1] not in PART_SEG:
         raise TypeError(
             f"--model {args.model}: the trainers build part-seg models "
@@ -148,8 +163,10 @@ def build_model(args, mod, device):
     ``--reconstruct`` goes to either MSG model, ``--l2_norm`` to
     ``pretrain_pointnet2_part_seg_msg`` only and ``--extra_layers`` to
     ``pointnet2_part_seg_msg`` only (the JAX part-seg model takes an
-    ``l2_norm`` and never reads it)."""
+    ``l2_norm`` and never reads it).  ``args.max_region`` (from
+    ``PRIFIT_MAX_REGION``) goes to the models with SA scales."""
     common = dict(normal_channel=args.normal, device="cpu")
+    region = dict(max_region=getattr(args, "max_region", False))
     if "dgcnn" in args.model:
         model = mod.get_model(num_parts=args.num_parts, nn_nb=args.dgcnn_k,
                               **common)
@@ -157,13 +174,14 @@ def build_model(args, mod, device):
         model = mod.get_model(part_num=args.num_parts, **common)
     elif args.model == "pointnet2_part_seg_ssg":
         model = mod.get_model(num_classes=args.num_parts,
-                              compute_dtype=args.encoder_dtype, **common)
+                              compute_dtype=args.encoder_dtype, **region,
+                              **common)
     elif args.model == "reconstruction":
-        model = mod.get_model(num_classes=args.num_parts, **common)
+        model = mod.get_model(num_classes=args.num_parts, **region, **common)
     else:
         kwargs = dict(num_parts=args.num_parts, reconstruct=args.reconstruct,
                       compute_dtype=args.encoder_dtype,
-                      stage_dtypes=args.stage_dtypes, **common)
+                      stage_dtypes=args.stage_dtypes, **region, **common)
         if args.model == "pretrain_pointnet2_part_seg_msg":
             kwargs["l2_norm"] = args.l2_norm
         else:
@@ -199,12 +217,19 @@ def train_init_class(state, model, mod, loader, args, log,
     second layer, and the layers after it carry its gradient.  Only
     ``conv2``'s parameters take gradients.  A model with no ``conv2``
     (``dgcnn``) raises ``ValueError``: the JAX trainer fails there too.
+    An epoch is ``len(loader.dataset) // --batch_size`` batches of a
+    stream that cycles the loader, as in the main loop.  Under data
+    parallelism (the model's group) each rank's loss is its shard's mean
+    and the gradients are averaged over the group (the forward is in eval
+    mode, so the ranks' losses share no batch statistic); every rank runs
+    the same count, whatever its round-robin shard's length.
     """
     device = resolve_device(device)
     conv2 = getattr(model, "conv2", None)
     if conv2 is None:
         raise ValueError(f"--init_cls re-initializes the layer named conv2, "
                          f"and {args.model} has none")
+    group = process_group_of(model)
     opt = torch.optim.SGD(conv2.parameters(), lr=0.1, momentum=0.5)
     trained = {id(p) for p in conv2.parameters()}
     frozen = [p for p in model.parameters()
@@ -213,10 +238,12 @@ def train_init_class(state, model, mod, loader, args, log,
     rng = np.random.default_rng(args.seed)
     for p in frozen:
         p.requires_grad_(False)
+    iters = len(loader.dataset) // args.batch_size
+    batches = cycle(loader)
     try:
         for epoch in range(num_epochs):
             losses = []
-            for points, cls, target in loader:
+            for points, cls, target in itertools.islice(batches, iters):
                 pts = torch.as_tensor(augment_sup(points, rng),
                                       device=device)
                 onehot = torch.as_tensor(np_onehot(cls, args.num_classes),
@@ -226,28 +253,34 @@ def train_init_class(state, model, mod, loader, args, log,
                     target.astype(np.int64), device=device), out.trans_feat)
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                average_gradients(conv2.parameters(), group)
                 opt.step()
                 losses.append(loss.item())
             if epoch % 100 == 0 or epoch == num_epochs - 1:
                 log(f"Init Classifier epoch {epoch + 1}/{num_epochs} "
                     f"loss {np.mean(losses):.4f}")
     finally:
+        batches.close()
         for p in frozen:
             p.requires_grad_(True)
     return state
 
 
-def build_loaders(args, log):
+def build_loaders(args, log, shard=None):
     """``(train_loader, selfsup_loader)``: the labeled ShapeNet-Part loader
     and, under ``--selfsup``, the self-sup one (ACD, or the "dummy"
     ShapeNet-Part source), seeded as in the JAX trainer; the self-sup
-    loader is None without ``--selfsup``."""
+    loader is None without ``--selfsup``.  ``shard``: this rank's
+    ``batch_size``, ``process_index`` and ``process_count``
+    (:func:`prifit_torch.cli.dp.loader_shard`); one process loads the
+    whole ``--batch_size``."""
+    shard = shard or dict(batch_size=args.batch_size)
     train_ds = PartNormalDataset(
         args.data_root, npoints=args.npoint, split=args.train_split,
         normal_channel=args.normal, k_shot=args.k_shot,
         rng=np.random.default_rng(args.seed))
-    train_loader = DataLoader(train_ds, args.batch_size, shuffle=True,
-                              seed=args.seed, num_workers=args.num_workers)
+    train_loader = DataLoader(train_ds, shuffle=True, seed=args.seed,
+                              num_workers=args.num_workers, **shard)
     log(f"The number of training data is: {len(train_ds)}")
     if not args.selfsup:
         return train_loader, None
@@ -274,8 +307,8 @@ def build_loaders(args, log):
         chamfer_n = args.chamfer_npoints
     log(f"\t{len(ss_ds)} self-sup samples")
     selfsup_loader = DataLoader(
-        ss_ds, args.batch_size, shuffle=True, seed=args.seed + 1,
-        chamfer_npoints=chamfer_n, num_workers=args.num_workers)
+        ss_ds, shuffle=True, seed=args.seed + 1,
+        chamfer_npoints=chamfer_n, num_workers=args.num_workers, **shard)
     return train_loader, selfsup_loader
 
 
@@ -352,12 +385,50 @@ def batch_transforms(args):
     return sup_transform, selfsup_transform
 
 
-def build_steps(args, mod):
+def use_point_sp(args) -> bool:
+    """Whether the self-sup step shards the point axis (the JAX
+    trainer's condition)."""
+    return (args.selfsup and args.ss_loss != "contrastive"
+            and args.sp_points > 1)
+
+
+def build_mesh(args, world: int):
+    """``(mesh, description)``: under ``--sp_points`` the 2-D ``(data,
+    points)`` mesh of every rank, after the JAX trainer's checks
+    (``SystemExit`` with its messages); else the data mesh of the most
+    ranks that divide ``--batch_size``."""
+    if not use_point_sp(args):
+        mesh = make_data_mesh(args.batch_size)
+        return mesh, f"Data-parallel mesh over {mesh.size} device(s)"
+    from prifit_torch.parallel.point_sp import make_dp_sp_mesh
+
+    if world % args.sp_points != 0:
+        raise SystemExit(f"--sp_points {args.sp_points} must divide "
+                         f"the device count ({world})")
+    if args.npoint % args.sp_points != 0:
+        raise SystemExit(f"--sp_points {args.sp_points} must divide "
+                         f"--npoint ({args.npoint})")
+    if args.chamfer_npoints % args.sp_points != 0:
+        raise SystemExit(f"--sp_points {args.sp_points} must divide "
+                         f"--chamfer_npoints ({args.chamfer_npoints}) — "
+                         f"the chamfer target is sharded over the points "
+                         f"axis")
+    n_dp = world // args.sp_points
+    if args.batch_size % n_dp != 0:
+        raise SystemExit(f"--batch_size {args.batch_size} must be "
+                         f"divisible by the data axis ({n_dp})")
+    return (make_dp_sp_mesh(n_dp, args.sp_points),
+            f"Point-SP mesh: data={n_dp} x points={args.sp_points}")
+
+
+def build_steps(args, mod, mesh=None):
     """``(sup_step, ss_step)``: the supervised step and, under
     ``--selfsup``, the self-sup step (the convex loss, or ``--ss_loss
-    contrastive``; None without ``--selfsup``).  Both self-sup steps take
-    ``(state, points, cls_onehot, chamfer_points or component labels,
-    lr, bn_momentum, lmbda, generator)``."""
+    contrastive``; None without ``--selfsup``), data-parallel over the
+    model's group, and under ``--sp_points`` the point-sharded self-sup
+    step on ``mesh``.  Both self-sup steps take ``(state, points,
+    cls_onehot, chamfer_points or component labels, lr, bn_momentum,
+    lmbda, generator, sr_key)``."""
     sup_step = make_supervised_step(mod.get_loss,
                                     fused_augment=args.fused_augment)
     if not args.selfsup:
@@ -365,14 +436,22 @@ def build_steps(args, mod):
     if args.ss_loss == "contrastive":
         return sup_step, make_contrastive_step(mod.get_selfsup_loss,
                                                margin=args.margin)
+    if use_point_sp(args):
+        # point-axis sequence parallelism: encoder DP over the data axis,
+        # O(N^2) fit pipeline sharded over the points axis of the 2-D
+        # mesh (parallel/point_sp.py; ring mean-shift + psum fit)
+        return sup_step, make_selfsup_step_point_sp(
+            mesh=mesh, quantile=args.quantile,
+            msc_iterations=args.msc_iterations,
+            max_num_clusters=args.max_num_clusters,
+            n_per_prim=args.n_per_prim, if_cuboid=args.if_cuboid)
     # NOTE the reference gates the convex loss on --include_convex_loss
     # even under --selfsup (train:444) and its README recipe omits the
     # flag, which trains with a ZERO self-sup loss as shipped; --selfsup
     # here implies the convex loss (the paper's intent), as in the JAX
     # trainer
     return sup_step, make_selfsup_step(
-        fused_augment=args.fused_augment,
-        if_cuboid=args.if_cuboid,
+        fused_augment=args.fused_augment, if_cuboid=args.if_cuboid,
         include_intersect_loss=args.include_intersect_loss,
         include_entropy_loss=args.include_entropy_loss,
         include_pruning=args.include_pruning,
@@ -390,22 +469,34 @@ def main(args, device=None, on_iteration=None):
     iteration's steps (a timing hook)."""
     device = resolve_device(device)
     check_supported(args)
+    distributed = maybe_initialize_distributed()
+    world = torch.distributed.get_world_size() if distributed else 1
+    mesh, mesh_msg = build_mesh(args, world)
+    main_rank = dp.is_main()
     exp_dir = osp.join(args.experiment_root, experiment_name(args))
     ckpt_dir = osp.join(exp_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
-    log = setup_logger("train", osp.join(exp_dir, "train.log"))
+    log = dp.quiet(setup_logger("train", osp.join(exp_dir, "train.log"))
+                   if main_rank else None)
     log(f"PARAMETERS: {vars(args)}")
     log(f"device {device}; point files parsed by the "
         f"{native.parser_name()} parser")
     metrics_path = osp.join(exp_dir, "metrics.jsonl")
+    log(mesh_msg)
+    if not mesh.member:
+        # --batch_size does not split over every rank: this one idles
+        return None
     # tensorboard scalars next to the jsonl (reference train:170,477-480)
-    tb = ScalarWriter(exp_dir)
+    tb = ScalarWriter(exp_dir) if main_rank else None
 
-    train_loader, selfsup_loader = build_loaders(args, log)
+    train_loader, selfsup_loader = build_loaders(
+        args, log, dp.loader_shard(mesh, args.batch_size))
 
     # ---------------------------------------------------------- model
     mod = get_module(args.model)
     model = build_model(args, mod, device)
+    replicate(mesh, model)
+    set_process_group(model, mesh.group("data"))
     state = create_train_state(model, optimizer=args.optimizer,
                                decay_rate=args.decay_rate)
     n_params = sum(p.numel() for p in model.parameters())
@@ -431,8 +522,8 @@ def main(args, device=None, on_iteration=None):
         except FileNotFoundError:
             log("No existing model, starting training from scratch...")
 
-    sup_step, ss_step = build_steps(args, mod)
-    generator = torch.Generator(device=device)
+    sup_step, ss_step = build_steps(args, mod, mesh)
+    generator, reseed, sr_key = dp.rank_generator(device, mesh)
     best_metrics = {"best_class_avg_miou": 0.0, "best_acc": 0.0,
                     "best_epoch": 0, "best_instance_avg_miou": 0.0,
                     "best_chamfer_loss": float("inf")}
@@ -454,7 +545,7 @@ def main(args, device=None, on_iteration=None):
     # ---------------------------------------------------------- epochs
     for epoch in range(start_epoch, args.epoch):
         t0 = time.time()
-        generator.manual_seed(args.seed * 1000003 + epoch)
+        reseed(args.seed * 1000003 + epoch)
         lr = lr_schedule(epoch, args.learning_rate, args.lr_decay,
                          args.step_size, args.lr_clip)
         momentum = bn_momentum_schedule(epoch, args.step_size)
@@ -463,8 +554,11 @@ def main(args, device=None, on_iteration=None):
         log(f"Epoch {epoch + 1}/{args.epoch}: lr {lr:.6f} "
             f"bn-momentum {momentum:.4f} lambda {lmbda:.4f}")
 
+        # global batches an epoch: every rank runs the same count, whatever
+        # its round-robin shard's length
         num_iters = args.epoch_iters or (
-            len(selfsup_loader) if args.selfsup else len(train_loader))
+            len((selfsup_loader if args.selfsup else train_loader).dataset)
+            // args.batch_size)
         mean_correct, sup_losses, ss_losses = [], [], []
 
         for i in range(num_iters):
@@ -472,7 +566,7 @@ def main(args, device=None, on_iteration=None):
             # on the device from the sup_stream prefetcher)
             points, cls_onehot, target = next(sup_stream)
             state, m = sup_step(state, points, cls_onehot, target, lr,
-                                momentum, generator)
+                                momentum, generator, sr_key())
             mean_correct.append(m["acc"])
             sup_losses.append(m["loss"])
 
@@ -482,7 +576,7 @@ def main(args, device=None, on_iteration=None):
             if ss_step is not None:
                 enc_pts, cls_zero, third = next(ss_stream)
                 state, m = ss_step(state, enc_pts, cls_zero, third, lr,
-                                   momentum, lmbda, generator)
+                                   momentum, lmbda, generator, sr_key())
                 ss_losses.append(m["ss_loss"])
             if on_iteration is not None:
                 on_iteration(epoch, i)
@@ -498,30 +592,32 @@ def main(args, device=None, on_iteration=None):
             msg += f" ss loss {ss_loss:.5f}"
         log(msg)
 
-        save_checkpoint(ckpt_dir, f"model_{epoch + 1:03d}", epoch=epoch,
-                        state=state, extra={"train_acc": train_acc})
-        save_checkpoint(ckpt_dir, "last_model", epoch=epoch, state=state,
-                        extra={"train_acc": train_acc})
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({
-                "epoch": epoch, "train_acc": train_acc, "lr": lr,
-                "bn_momentum": momentum, "lambda": lmbda}) + "\n")
-        # scalar names mirror the reference (train:477-480)
-        tb.scalar("train_acc", train_acc, epoch)
-        tb.scalar("train_lr", lr, epoch)
-        tb.scalar("train_bn_momentum", momentum, epoch)
-        tb.scalar("selfsup_lambda", lmbda, epoch)
-        tb.scalar("train_loss", sup_loss, epoch)
-        if ss_loss is not None:
-            tb.scalar("selfsup_loss", ss_loss, epoch)
-        tb.flush()
+        if main_rank:
+            save_checkpoint(ckpt_dir, f"model_{epoch + 1:03d}", epoch=epoch,
+                            state=state, extra={"train_acc": train_acc})
+            save_checkpoint(ckpt_dir, "last_model", epoch=epoch, state=state,
+                            extra={"train_acc": train_acc})
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({
+                    "epoch": epoch, "train_acc": train_acc, "lr": lr,
+                    "bn_momentum": momentum, "lambda": lmbda}) + "\n")
+            # scalar names mirror the reference (train:477-480)
+            tb.scalar("train_acc", train_acc, epoch)
+            tb.scalar("train_lr", lr, epoch)
+            tb.scalar("train_bn_momentum", momentum, epoch)
+            tb.scalar("selfsup_lambda", lmbda, epoch)
+            tb.scalar("train_loss", sup_loss, epoch)
+            if ss_loss is not None:
+                tb.scalar("selfsup_loss", ss_loss, epoch)
+            tb.flush()
 
         if args.eval_every and (epoch + 1) % args.eval_every == 0:
             prev_best = best_metrics["best_class_avg_miou"]
             run_evaluation(args, epoch, model, state, log,
                            metrics=best_metrics, cache=eval_cache,
-                           device=device)
-            if best_metrics["best_class_avg_miou"] > prev_best:
+                           device=device, mesh=mesh)
+            if best_metrics["best_class_avg_miou"] > prev_best \
+                    and main_rank:
                 # checkpoint the actual best-mIoU model
                 save_checkpoint(ckpt_dir, "best_model", epoch=epoch,
                                 state=state, extra={
@@ -537,23 +633,25 @@ def main(args, device=None, on_iteration=None):
     # final evaluation (reference train:487)
     metrics = run_evaluation(args, args.epoch - 1, model, state, log,
                              metrics=best_metrics, cache=eval_cache,
-                             device=device)
-    if not osp.exists(osp.join(ckpt_dir, "best_model")):
-        save_checkpoint(ckpt_dir, "best_model", epoch=args.epoch - 1,
-                        state=state, extra={
-                            "class_avg_miou": metrics["class_avg_iou"]})
-    with open(metrics_path, "a") as f:
-        f.write(json.dumps({"final_eval": metrics}) + "\n")
-    tb.close()
+                             device=device, mesh=mesh)
+    if main_rank:
+        if not osp.exists(osp.join(ckpt_dir, "best_model")):
+            save_checkpoint(ckpt_dir, "best_model", epoch=args.epoch - 1,
+                            state=state, extra={
+                                "class_avg_miou": metrics["class_avg_iou"]})
+        with open(metrics_path, "a") as f:
+            f.write(json.dumps({"final_eval": metrics}) + "\n")
+        tb.close()
     return metrics
 
 
 def run_evaluation(args, epoch, model, state, log, metrics=None,
-                   cache=None, device=None):
+                   cache=None, device=None, mesh=None):
     """Evaluate ``model`` on ``--eval_split``; the dataset and loader are
     built once and kept in ``cache``.  Short tail batches are padded to
     ``--batch_size`` (``evaluation``'s ``pad_to``), as in the JAX
-    trainer."""
+    trainer; with a ``mesh`` each padded batch is sharded over its data
+    axis and the logits gathered (every rank gets the metrics)."""
     device = resolve_device(device)
     cache = cache if cache is not None else {}
     if "loader" not in cache:
@@ -565,8 +663,11 @@ def run_evaluation(args, epoch, model, state, log, metrics=None,
                                      shuffle=False, drop_last=False,
                                      num_workers=args.num_workers)
         log(f"The number of test data is: {len(eval_ds)}")
+    forward = make_eval_forward(model)
+    if mesh is not None:
+        forward = dp.sharded_forward(forward, mesh)
     return evaluation(
-        make_eval_forward(model), cache["loader"], num_parts=args.num_parts,
+        forward, cache["loader"], num_parts=args.num_parts,
         epoch=epoch, log=log, metrics=metrics, device=device,
         pad_to=args.batch_size)
 

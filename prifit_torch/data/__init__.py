@@ -4,7 +4,8 @@ augmentations and their on-device counterparts)."""
 
 from prifit_torch.data import augment_torch, provider
 from prifit_torch.data.augment import Augment
-from prifit_torch.data.loader import DataLoader, prefetch_to_device
+from prifit_torch.data.loader import DataLoader, prefetch_to_device, \
+    shard_for_host
 from prifit_torch.data.modelnet import ModelNetDataLoader
 from prifit_torch.data.s3dis import S3DIS_CLASSES, S3DISDataset
 from prifit_torch.data.shapenet import (
@@ -24,6 +25,7 @@ __all__ = [
     "ACDSelfSupDataset",
     "MultiACDSelfSupDataset",
     "DataLoader",
+    "shard_for_host",
     "ModelNetDataLoader",
     "S3DISDataset",
     "S3DIS_CLASSES",

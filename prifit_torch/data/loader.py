@@ -1,9 +1,12 @@
-"""Batching loader: worker threads, device prefetch.
+"""Batching loader: worker threads, per-process sharding, device prefetch.
 
-The port's copy of ``prifit_tpu/data/loader.py`` (``DataLoader``), for
-one process, with :func:`prefetch_to_device` rebuilt for CUDA.  It
-replaces ``torch.utils.data.DataLoader`` for the numpy datasets:
-shuffling, fixed-size collation, background worker threads that overlap
+The port's copy of ``prifit_tpu/data/loader.py`` (``DataLoader`` and
+``shard_for_host``), with :func:`prefetch_to_device` rebuilt for CUDA.
+It replaces ``torch.utils.data.DataLoader`` for the numpy datasets:
+shuffling, fixed-size collation, deterministic sharding of the example
+stream over data-parallel processes (``process_index`` of
+``process_count``: the epoch shuffle is shared, and each process takes a
+round-robin shard of it), background worker threads that overlap
 file parsing/collation with the device's steps (the reference's
 ``num_workers=4``, ``train_partseg_shapenet.py:178``), and
 :func:`prefetch_to_device`, which copies the NEXT batches to the device on
@@ -38,6 +41,12 @@ from prifit_torch.utils.device import resolve_device
 AHEAD = 2
 
 
+def shard_for_host(indices: np.ndarray, process_index: int,
+                   process_count: int) -> np.ndarray:
+    """Static round-robin shard of an index stream for one process."""
+    return indices[process_index::process_count]
+
+
 def _resample(points: np.ndarray, n: int,
               rng: np.random.Generator) -> np.ndarray:
     if points.shape[0] == n:
@@ -57,13 +66,15 @@ class DataLoader:
         dataset: indexable with ``__len__``; items are tuples of arrays.
             If it exposes ``get(index, rng)``, item randomness comes from
             a per-(seed, epoch, index) rng (deterministic under workers).
-        batch_size: batch size.
+        batch_size: batch size (of this process).
         shuffle: reshuffle each epoch with an epoch-derived rng.
         drop_last: drop the trailing partial batch (default True — static
             shapes; the reference instead papers over DataParallel arity
             crashes with try/except, ``train_partseg_shapenet.py:386-389``).
         chamfer_npoints: fixed collation size for ragged element 1 of ACD
             4-tuples (None = items are already fixed-size).
+        process_index/process_count: data-parallel sharding of the
+            stream (this process's index among ``process_count``).
         num_workers: >0 loads/collates batches in background threads,
             ``AHEAD`` beyond one a thread ahead of the consumer (0 =
             synchronous, same batches either way).
@@ -72,19 +83,23 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 0,
                  chamfer_npoints: int | None = None,
+                 process_index: int = 0, process_count: int = 1,
                  num_workers: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.chamfer_npoints = chamfer_npoints
+        self.process_index = process_index
+        self.process_count = process_count
         self.num_workers = num_workers
         self._seed = seed
         self._epoch = 0
         self._ds_lock = threading.Lock()
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(shard_for_host(np.arange(len(self.dataset)),
+                               self.process_index, self.process_count))
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -122,11 +137,13 @@ class DataLoader:
     def _batches(self) -> list[np.ndarray]:
         indices = np.arange(len(self.dataset))
         if self.shuffle:
-            # epoch-dependent shuffle (the JAX package's, which all its
-            # hosts share)
+            # epoch-dependent shuffle shared by all processes (same seed),
+            # so the round-robin shard is disjoint and exhaustive
             epoch_rng = np.random.default_rng(
                 self._seed * 100003 + self._epoch)
             epoch_rng.shuffle(indices)
+        indices = shard_for_host(indices, self.process_index,
+                                 self.process_count)
         out = []
         for start in range(0, len(indices), self.batch_size):
             batch_idx = indices[start:start + self.batch_size]

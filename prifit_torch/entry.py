@@ -1,5 +1,7 @@
 """Entry points of the port: the flagship model, its eval forward with
-primitive fit, and its train steps (supervised, self-sup and contrastive).
+primitive fit, its train steps (supervised, self-sup and contrastive),
+and :func:`dryrun_multichip`, the data- and point-parallel steps on
+whatever process group is up.
 
 Mirrors ``__graft_entry__._flagship`` / ``entry`` and the programs that
 ``bench.py`` times: ``pointnet2_part_seg_msg`` with 50 parts, in eval
@@ -76,19 +78,23 @@ def flagship(batch: int, npoint: int, *, device=None):
 
 
 def train_flagship(batch: int, npoint: int, *, device=None,
-                   compute_dtype: str = "auto", stage_dtypes: str = ""):
+                   compute_dtype: str = "auto", stage_dtypes: str = "",
+                   max_region: bool = False):
     """``(state, points, cls, target)``: the flagship with the encoder
     dtype ``compute_dtype`` (the JAX package's default ``"auto"`` =
     ``mxsr``; ``"f32"`` for the f32 encoder) and the per-stage overrides
     ``stage_dtypes`` (the trainer's ``--stage_dtypes``) in train mode,
-    random weights from seed 0 and an Adam
+    with ``max_region`` the SA scales' closed-form K-max region outside
+    ``mx``/``mxsr`` (the trainer's ``PRIFIT_MAX_REGION=on``), random
+    weights from seed 0 and an Adam
     :class:`~prifit_torch.train.state.TrainState`; a gaussian cloud
     ``[batch, npoint, 3]`` from seed 0 (the one :func:`flagship` makes),
     category 0, and random part labels ``[batch, npoint]`` from the same
     seed."""
     device = resolve_device(device)
     model = get_model(num_parts=50, compute_dtype=compute_dtype,
-                      stage_dtypes=stage_dtypes, device="cpu")
+                      stage_dtypes=stage_dtypes, max_region=max_region,
+                      device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     state = create_train_state(model.to(device).train())
     rng = np.random.default_rng(0)
@@ -137,3 +143,116 @@ def entry(device=None):
         return out.seg_logits, out.total_loss
 
     return fn, (points, cls)
+
+
+# the mxsr key of the dry run's steps: one key on every rank, as the JAX
+# program has one
+DRYRUN_KEY = (0x51ED270B, 0x3C6EF372)
+
+
+def blob_embeddings(n_shapes: int, npoint: int, seed: int = 0):
+    """``(emb [n, npoint, 16], xyz [n, npoint, 3])``: four orthogonal
+    embedding directions (times 4, noise 0.15) and four xyz blobs 4 apart
+    (noise 0.3), point ``i`` in blob ``i % 4``: a multi-cluster input
+    (random embeddings collapse to one cluster under mean-shift, which
+    would leave the multi-slot fit untested).  ``__graft_entry__``'s dry
+    run builds the same."""
+    rng = np.random.default_rng(seed)
+    blob = np.arange(npoint) % 4
+    emb = np.eye(16, dtype=np.float32)[:4][blob] * 4.0 \
+        + rng.normal(size=(n_shapes, npoint, 16)) * 0.15
+    centers = np.array([[0, 0, 0], [4, 0, 0], [0, 4, 0], [0, 0, 4]],
+                       np.float32)
+    xyz = centers[blob] + rng.normal(size=(n_shapes, npoint, 3)) * 0.3
+    return emb.astype(np.float32), xyz.astype(np.float32)
+
+
+def dryrun_multichip(device=None, *, batch: int | None = None,
+                     npoint: int = 512, compute_dtype: str = "auto",
+                     sp_points: int | None = None, quantile: float = 0.2,
+                     msc_iterations: int = 2, max_num_clusters: int = 4,
+                     n_per_prim: int = 16) -> dict:
+    """One data-parallel supervised step and one self-sup step on the
+    mesh of every rank of the process group that is up (one process:
+    world size 1), then ``cluster_and_fit_point_sharded`` and one
+    point-SP self-sup step on a ``(data, points)`` mesh with
+    ``sp_points`` ranks on the points axis (default: half the ranks), as
+    ``__graft_entry__.dryrun_multichip`` runs them.
+
+    The flagship from :func:`train_flagship` (``compute_dtype``; ``batch``
+    defaults to 2 a rank) on a gaussian cloud from seed 0, each rank
+    taking its shard; ``npoint`` is 512, not the JAX dry run's 64: the
+    FPS kernel takes no more centroids (sa1's 512) than points; every rank builds the same weights and data, and
+    the steps keep them equal.  The steps' draws (FPS starts, dropout)
+    come from a generator seeded with the rank's data coordinate; the
+    ``mxsr`` key is :data:`DRYRUN_KEY` on every rank.  Returns the losses, the point-SP
+    clustering's slot counts and radii (this rank's copy of the
+    replicated result) and the state after the last step."""
+    import torch.distributed as dist
+
+    from prifit_torch.models.pointnet2_part_seg_msg import get_loss
+    from prifit_torch.nn.norm import set_process_group
+    from prifit_torch.parallel import make_mesh, shard_batch
+    from prifit_torch.parallel.point_sp import (
+        cluster_and_fit_point_sharded,
+        make_dp_sp_mesh,
+    )
+    from prifit_torch.train.steps import (
+        make_selfsup_step,
+        make_selfsup_step_point_sp,
+        make_supervised_step,
+    )
+
+    device = resolve_device(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh()
+    batch = batch or 2 * world
+    state, points, cls, target = train_flagship(
+        batch, npoint, device=device, compute_dtype=compute_dtype)
+    lr, mom = TRAIN_SETTINGS["lr"], TRAIN_SETTINGS["bn_momentum"]
+
+    def generator(m):
+        return torch.Generator(device=device).manual_seed(
+            1 + (m.coords.get("data") or 0))
+
+    # supervised and convex self-sup steps, batch-sharded
+    p, c, t = shard_batch(mesh, (points, cls, target))
+    gen = generator(mesh)
+    set_process_group(state.model, mesh.group("data"))
+    state, m_sup = make_supervised_step(get_loss)(
+        state, p, c, t, lr, mom, gen, sr_key=DRYRUN_KEY)
+    ss_kw = dict(quantile=quantile, msc_iterations=msc_iterations,
+                 max_num_clusters=max_num_clusters, n_per_prim=n_per_prim)
+    state, m_ss = make_selfsup_step(**ss_kw)(
+        state, p, c, p, lr, mom, 1.0, gen, sr_key=DRYRUN_KEY)
+
+    # 2-D (data, points) mesh: ring mean-shift + moment-summed fitting
+    n_sp = sp_points or max(world // 2, 1)
+    n_dp = world // n_sp
+    mesh2 = make_dp_sp_mesh(n_dp, n_sp)
+    emb, xyz = blob_embeddings(n_dp, npoint)
+    emb, xyz = shard_batch(mesh2, (torch.as_tensor(emb, device=device),
+                                   torch.as_tensor(xyz, device=device)))
+    res, prims = cluster_and_fit_point_sharded(
+        emb, xyz, mesh=mesh2, quantile=quantile, iterations=5,
+        max_num_clusters=8)
+
+    # the --sp_points train step: encoder DP over the data axis, convex
+    # loss point-sharded, one optimizer update
+    sp_step = make_selfsup_step_point_sp(
+        mesh=mesh2, quantile=quantile, msc_iterations=msc_iterations,
+        max_num_clusters=max_num_clusters, n_per_prim=n_per_prim)
+    set_process_group(state.model, mesh2.group("data"))
+    sp = shard_batch(mesh2, points[:n_dp])
+    state, m_sp = sp_step(state, sp, cls[:sp.shape[0]], sp, lr, mom, 1.0,
+                          generator(mesh2), sr_key=DRYRUN_KEY)
+    out = {"sup_loss": m_sup["loss"].item(), "ss_loss": m_ss["ss_loss"].item(),
+           "sp_loss": m_sp["ss_loss"].item(),
+           "sp_clusters": res.num_clusters.tolist(),
+           "sp_radii": prims.r.detach().cpu(), "state": state,
+           "world": world, "sp_mesh": dict(mesh2.shape)}
+    if not all(np.isfinite(out[k]) for k in ("sup_loss", "ss_loss",
+                                              "sp_loss")):
+        raise AssertionError(f"dryrun_multichip: a loss is not finite: "
+                             f"{out}")
+    return out

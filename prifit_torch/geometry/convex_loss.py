@@ -13,6 +13,8 @@ Randomness (the entropy subsample and the jitter) comes from a
 ``torch.Generator``, where the JAX package takes a key; without one, the
 JAX package's deterministic fallbacks.  ``entropy_sub`` and ``jitter``
 give the draws themselves, for runs that must draw the same bits.
+``group`` (data parallelism) makes every mean over shapes global
+(:mod:`prifit_torch.geometry.losses`).
 """
 
 from typing import NamedTuple
@@ -50,7 +52,8 @@ def convex_loss(points: torch.Tensor, chamfer_points: torch.Tensor,
                 evaluation: bool = False,
                 generator: torch.Generator | None = None,
                 entropy_sub: torch.Tensor | None = None,
-                jitter: torch.Tensor | None = None) -> ConvexLossOutput:
+                jitter: torch.Tensor | None = None,
+                group=None) -> ConvexLossOutput:
     """``points [B, N, 3]`` (fit targets), ``chamfer_points [B, M, 3]``
     (chamfer targets), ``X [B, N, D]`` per-point embeddings.
 
@@ -74,7 +77,7 @@ def convex_loss(points: torch.Tensor, chamfer_points: torch.Tensor,
                     device=generator.device)[:N // 4].to(X.device)
             elif entropy_sub is None:
                 entropy_sub = torch.arange(0, N, 4, device=X.device)[:N // 4]
-            ent = entropy_loss(X[:, entropy_sub])
+            ent = entropy_loss(X[:, entropy_sub], group=group)
     with record_function("cluster_batch"):
         clusters = cluster_batch(
             X, quantile=quantile, iterations=iterations,
@@ -91,7 +94,7 @@ def convex_loss(points: torch.Tensor, chamfer_points: torch.Tensor,
             sample_w = sample_w * prune_mask(samples, params, if_cuboid)
     with record_function("analytic_chamfer"):
         cham = zero if evaluation else analytic_chamfer(
-            params, samples, sample_w, chamfer_points, if_cuboid)
+            params, samples, sample_w, chamfer_points, if_cuboid, group)
     inter = zero
     if include_intersect_loss:
         with record_function("intersection_loss"):
@@ -102,7 +105,7 @@ def convex_loss(points: torch.Tensor, chamfer_points: torch.Tensor,
             elif jitter is None:
                 jitter = 0.1
             inter = intersection_loss(params, chamfer_points - jitter,
-                                      if_cuboid)
+                                      if_cuboid, group=group)
     total = cham + alpha * inter + beta * ent
     return ConvexLossOutput(total=total, chamfer=cham, entropy=ent,
                             intersection=inter, params=params,

@@ -14,20 +14,29 @@ static slot counts and validity masks:
     ``intersection_loss_v4``);
   - ``prune_mask``: the no-gradient mask of samples on or near the union
     surface.
+
+Under data parallelism ``group`` (the data axis's process group) makes
+each mean over shapes a mean over the global batch, replicated on every
+rank (:mod:`prifit_torch.parallel.collectives`), as the JAX package's
+partitioner computes it.
 """
 
 import torch
 
 from prifit_torch.geometry.fitting import PrimitiveParams
+from prifit_torch.parallel.collectives import group_size, psum
 from prifit_torch.geometry.sdf import sdf_primitives
 from prifit_torch.ops.chamfer import nn_squared_distance
 
 
-def _mean_over(losses: torch.Tensor, has: torch.Tensor) -> torch.Tensor:
+def _mean_over(losses: torch.Tensor, has: torch.Tensor,
+               group=None) -> torch.Tensor:
     """Per-shape ``losses [B]`` zeroed where ``has [B]`` is False, summed
-    and divided by the number of shapes that have it (at least 1)."""
-    return torch.where(has, losses, torch.zeros_like(losses)).sum() \
-        / torch.clamp_min(has.sum(), 1)
+    and divided by the number of shapes that have it (at least 1), over
+    the ranks of ``group``."""
+    num = psum(torch.where(has, losses, torch.zeros_like(losses)).sum(),
+               group)
+    return num / torch.clamp_min(psum(has.sum().to(num.dtype), group), 1.0)
 
 
 def _where_valid(valid, x, fill):
@@ -35,19 +44,24 @@ def _where_valid(valid, x, fill):
     return torch.where(valid[:, None, :], x, torch.full_like(x, fill))
 
 
-def entropy_loss(X: torch.Tensor, margin: float = 1.8) -> torch.Tensor:
+def entropy_loss(X: torch.Tensor, margin: float = 1.8,
+                 group=None) -> torch.Tensor:
     """``relu(mean_b[sum((1 + X_b X_b^T)^2) / n^2] - margin)`` of unit-norm
-    embeddings ``X [B, n, D]``: pushes identical embeddings apart so that
-    the convex loss has clusters to find."""
+    embeddings ``X [B, n, D]`` (the mean over the ranks of ``group``):
+    pushes identical embeddings apart so that the convex loss has clusters
+    to find."""
     n = X.shape[1]
     sim = torch.matmul(X, X.transpose(1, 2))
     l = torch.sum((1.0 + sim) ** 2, dim=(1, 2)) / (n * n)
-    return torch.relu(torch.mean(l) - margin)
+    if group_size(group) == 1:
+        return torch.relu(torch.mean(l) - margin)
+    return torch.relu(psum(l.sum(), group) / (l.shape[0] * group_size(group))
+                      - margin)
 
 
 def analytic_chamfer(params: PrimitiveParams, samples: torch.Tensor,
                      sample_w: torch.Tensor, target: torch.Tensor,
-                     cuboid: bool = False) -> torch.Tensor:
+                     cuboid: bool = False, group=None) -> torch.Tensor:
     """Target side: mean over target points of ``(min_k |sdf_k|)^2``;
     source side: area-weighted mean over primitive samples of the squared
     distance to the nearest target point; per shape their average, then
@@ -64,7 +78,7 @@ def analytic_chamfer(params: PrimitiveParams, samples: torch.Tensor,
     has = params.valid.any(-1)
     mean_ts = torch.mean(torch.where(has[:, None], d_ts,
                                      torch.zeros_like(d_ts)), dim=-1)
-    return _mean_over((mean_st + mean_ts) / 2.0, has)
+    return _mean_over((mean_st + mean_ts) / 2.0, has, group)
 
 
 def clamped_sdf_owner(params: PrimitiveParams, points: torch.Tensor,
@@ -81,8 +95,8 @@ def clamped_sdf_owner(params: PrimitiveParams, points: torch.Tensor,
 
 
 def intersection_loss(params: PrimitiveParams, points: torch.Tensor,
-                      cuboid: bool = False, clamp: float = -1e-3
-                      ) -> torch.Tensor:
+                      cuboid: bool = False, clamp: float = -1e-3,
+                      group=None) -> torch.Tensor:
     """Primitive overlap penalty at ``points [B, M, 3]``: per point the
     mean clamped SDF (:func:`clamped_sdf_owner`) over the valid slots but
     its own, squared, averaged over the points; then the mean over shapes
@@ -94,7 +108,7 @@ def intersection_loss(params: PrimitiveParams, points: torch.Tensor,
     denom = torch.clamp_min(others.sum(-1), 1.0)
     mean_others = torch.sum(sdf * others, dim=-1) / denom    # [B, M]
     loss = torch.mean(mean_others ** 2, dim=-1)
-    return _mean_over(loss, params.valid.sum(-1) > 1)
+    return _mean_over(loss, params.valid.sum(-1) > 1, group)
 
 
 def sample_axis(r: torch.Tensor, V: torch.Tensor, center: torch.Tensor,

@@ -26,10 +26,15 @@ _W1, _W2 = 0x9E3779B9, 0x85EBCA6B
 _M1, _M2 = 0x7FEB352D, 0x846CA68B
 
 
-def hash_seed(key) -> int:
+def hash_seed(key, offset: int = 0) -> int:
     """The hash's additive seed ``key[0] * 0x85EBCA6B + key[1]`` (uint32),
-    as every kernel that rounds takes it."""
-    return (int(key[0]) * _W2 + int(key[-1])) & _MASK32
+    as every kernel that rounds takes it.  The hash starts from ``index *
+    0x9E3779B9 + seed``, so shifting every flat index by ``offset`` is
+    adding ``offset * 0x9E3779B9`` to the seed: a data-parallel shard
+    whose first element has the global flat index ``offset`` draws the
+    bits the unsharded tensor would."""
+    return (int(key[0]) * _W2 + int(key[-1]) + int(offset) * _W1) \
+        & _MASK32
 
 
 def _i32(c: int) -> int:
@@ -42,39 +47,40 @@ def _xorshift_(x: torch.Tensor, s: int) -> torch.Tensor:
     return x.bitwise_xor_((x >> s).bitwise_and_((1 << (32 - s)) - 1))
 
 
-def hash_bits16(key, shape, device=None) -> torch.Tensor:
+def hash_bits16(key, shape, device=None, offset: int = 0) -> torch.Tensor:
     """Uniform 16-bit noise (int32 values in [0, 2^16)) for every element of
-    ``shape``, from the element's flat row-major index."""
+    ``shape``, from the element's flat row-major index plus ``offset``."""
     numel = 1
     for s in shape:
         numel *= s
     x = torch.arange(numel, dtype=torch.int32, device=device)
-    x.mul_(_i32(_W1)).add_(_i32(hash_seed(key)))
+    x.mul_(_i32(_W1)).add_(_i32(hash_seed(key, offset)))
     _xorshift_(x, 16).mul_(_i32(_M1))
     _xorshift_(x, 15).mul_(_i32(_M2))
     _xorshift_(x, 16)
     return x.bitwise_right_shift_(16).bitwise_and_(0xFFFF).reshape(shape)
 
 
-def sr_bf16_plain(key, x: torch.Tensor) -> torch.Tensor:
+def sr_bf16_plain(key, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """Stochastically round ``x`` (any float dtype, taken as f32) to bf16
     with :func:`hash_bits16` bits (``nn/mixed.py::sr_bf16``, hash source,
     in the JAX package).  Finite inputs only: the int32 add then never
     crosses the sign boundary, and the arithmetic shift leaves the top
     half as the signed int16 bf16 pattern."""
     y = x.float().contiguous().view(torch.int32) + hash_bits16(
-        key, x.shape, x.device)
+        key, x.shape, x.device, offset)
     return y.bitwise_right_shift_(16).to(torch.int16).view(torch.bfloat16)
 
 
-def sr_bf16(key, x: torch.Tensor) -> torch.Tensor:
+def sr_bf16(key, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """``sr(x)`` as bf16 for an f32 tensor ``x`` and a key of two uint32
     words: the kernel for a CUDA tensor (contiguous), the plain version
-    for a CPU tensor."""
+    for a CPU tensor.  ``offset`` is added to every flat index (see
+    :func:`hash_seed`)."""
     if x.device.type == "cpu":
-        return sr_bf16_plain(key, x)
+        return sr_bf16_plain(key, x, offset)
     check_cuda("sr_bf16 x", x, torch.float32, align=4)
     y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     KERNEL.launch("sr_bf16", x.data_ptr(), y.data_ptr(), x.numel(),
-                  hash_seed(key), stream_handle(x))
+                  hash_seed(key, offset), stream_handle(x))
     return y

@@ -12,6 +12,7 @@ import torch
 from torch.profiler import record_function
 
 from prifit_torch.nn.mixed import fold_in
+from prifit_torch.parallel.collectives import all_reduce_, group_size, psum
 from prifit_torch.nn.pointnet2 import FQ, MX, MXSR
 
 
@@ -47,8 +48,8 @@ def to_categorical(y: torch.Tensor, num_classes: int = 16) -> torch.Tensor:
 def pairwise_contrastive_loss(feat: torch.Tensor, target: torch.Tensor,
                               generator: torch.Generator | None = None,
                               margin: float = 0.5, num_classes: int = 64,
-                              uniforms: torch.Tensor | None = None
-                              ) -> torch.Tensor:
+                              uniforms: torch.Tensor | None = None,
+                              group=None) -> torch.Tensor:
     """The ACD pairwise contrastive self-sup loss of per-point features
     ``feat [B, N, C]`` under component labels ``target [B, N]``: cosine
     similarity of the normalized features; pairs of one component pull
@@ -58,7 +59,8 @@ def pairwise_contrastive_loss(feat: torch.Tensor, target: torch.Tensor,
 
     A label outside ``[0, num_classes)`` has no component, as under the
     JAX package's one-hot: its point pairs with no point, itself
-    included."""
+    included.  ``group`` (data parallelism): the share of positive pairs
+    and the mean are the global batch's."""
     with record_function("pairwise_contrastive_loss"):
         feat = feat / torch.clamp_min(
             torch.linalg.norm(feat, dim=-1, keepdim=True), 1e-12)
@@ -68,7 +70,9 @@ def pairwise_contrastive_loss(feat: torch.Tensor, target: torch.Tensor,
         pos = (target[:, :, None] == target[:, None, :]) & known[:, :, None]
         cosine = torch.where(pos, 1.0 - pair_sim,
                              torch.relu(pair_sim - margin))
-        pos_fraction = pos.sum() / pos.numel()
+        size = group_size(group)
+        pos_fraction = all_reduce_(pos.sum().float(), group) \
+            / (pos.numel() * size)
         if uniforms is None:
             if generator is None:
                 raise ValueError("the contrastive loss needs a generator or "
@@ -77,7 +81,8 @@ def pairwise_contrastive_loss(feat: torch.Tensor, target: torch.Tensor,
                                   device=generator.device).to(feat.device)
         keep = (pos | (uniforms > 1.0 - pos_fraction)) & ~torch.eye(
             pos.shape[1], dtype=torch.bool, device=feat.device)
-        return 0.5 * torch.mean(torch.where(keep, cosine, 0.0))
+        loss = 0.5 * torch.mean(torch.where(keep, cosine, 0.0))
+        return loss if size == 1 else psum(loss, group) / size
 
 
 def chamfer_loss_dense(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

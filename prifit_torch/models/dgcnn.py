@@ -38,6 +38,8 @@ class get_model(nn.Module):
         super().__init__()
         self.dgcnn = DGCNNGn(128, 6 if normal_channel else 3, nn_nb,
                              num_seg=num_parts)
+        # data parallelism: the convex loss's group (group norms need none)
+        self.process_group = None
         self.to(resolve_device(device))
 
     def forward(self, xyz: torch.Tensor, cls_label=None,
@@ -70,7 +72,8 @@ class get_model(nn.Module):
                 include_intersect_loss=include_intersect_loss,
                 include_entropy_loss=include_entropy_loss,
                 include_pruning=include_pruning, alpha=alpha,
-                if_cuboid=if_cuboid, evaluation=evaluation, **draws)
+                if_cuboid=if_cuboid, evaluation=evaluation,
+                group=self.process_group, **draws)
             total_loss, chamfer = convex_out.total, convex_out.chamfer
         return SegOutput(seg_logits=torch.log_softmax(seg, dim=-1),
                          hidden=None, feat=embedding, total_loss=total_loss,
@@ -83,8 +86,8 @@ def get_loss(pred, target, trans_feat=None):
 
 
 def get_selfsup_loss(feat, target, generator=None, margin=0.5,
-                     uniforms=None):
+                     uniforms=None, group=None):
     """The ACD pairwise contrastive loss
     (:func:`prifit_torch.models.common.pairwise_contrastive_loss`)."""
     return pairwise_contrastive_loss(feat, target, generator, margin,
-                                     uniforms=uniforms)
+                                     uniforms=uniforms, group=group)

@@ -22,7 +22,7 @@ from prifit_torch.utils.device import resolve_device
 
 class get_model(nn.Module):
     def __init__(self, num_class: int, normal_channel: bool = True,
-                 device=None):
+                 max_region: bool = False, device=None):
         """``device``: where the parameters live; CUDA unless the caller
         names another (raises without a GPU)."""
         super().__init__()
@@ -31,10 +31,12 @@ class get_model(nn.Module):
         extra = 3 if normal_channel else 0
         self.sa1 = SetAbstractionMsg(
             512, [0.1, 0.2, 0.4], [16, 32, 128], extra,
-            [[32, 32, 64], [64, 64, 128], [64, 96, 128]])
+            [[32, 32, 64], [64, 64, 128], [64, 96, 128]],
+            max_region=max_region)
         self.sa2 = SetAbstractionMsg(
             128, [0.2, 0.4, 0.8], [32, 64, 128], 64 + 128 + 128,
-            [[64, 64, 128], [128, 128, 256], [128, 128, 256]])
+            [[64, 64, 128], [128, 128, 256], [128, 128, 256]],
+            max_region=max_region)
         self.sa3 = SetAbstractionAll(128 + 256 + 256 + 3, [256, 512, 1024])
         add_cls_head(self, num_class)
         self.to(resolve_device(device))

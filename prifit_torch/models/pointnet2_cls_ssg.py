@@ -49,15 +49,17 @@ def cls_head(model: nn.Module, x: torch.Tensor, rates, bn_momentum: float,
 
 class get_model(nn.Module):
     def __init__(self, num_class: int, normal_channel: bool = True,
-                 device=None):
+                 max_region: bool = False, device=None):
         """``device``: where the parameters live; CUDA unless the caller
         names another (raises without a GPU)."""
         super().__init__()
         self.normal_channel = normal_channel
         self.dropout_rates = (0.4, 0.4)
         extra = 3 if normal_channel else 0
-        self.sa1 = SetAbstraction(512, 0.2, 32, extra, [64, 64, 128])
-        self.sa2 = SetAbstraction(128, 0.4, 64, 128, [128, 128, 256])
+        self.sa1 = SetAbstraction(512, 0.2, 32, extra, [64, 64, 128],
+                                  max_region=max_region)
+        self.sa2 = SetAbstraction(128, 0.4, 64, 128, [128, 128, 256],
+                                  max_region=max_region)
         self.sa3 = SetAbstractionAll(256 + 3, [256, 512, 1024])
         add_cls_head(self, num_class)
         self.to(resolve_device(device))

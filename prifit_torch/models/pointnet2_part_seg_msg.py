@@ -77,11 +77,13 @@ class get_model(nn.Module):
                  reconstruct: bool = False, extra_layers: bool = False,
                  dropout_rate: float = 0.5, compute_dtype: str = "auto",
                  fused_ball_query: bool = True, stage_dtypes: str = "",
-                 device=None):
+                 max_region: bool = False, device=None):
         """``device``: where the model's parameters live; CUDA unless the
         caller names another (raises without a GPU).  AtlasNet under
         ``reconstruct`` has the JAX model's 25 charts of 11^2 points
-        (:class:`prifit_torch.nn.atlasnet.AtlasNet`'s defaults)."""
+        (:class:`prifit_torch.nn.atlasnet.AtlasNet`'s defaults).
+        ``max_region``: the SA scales' closed-form K-max region outside
+        ``mx``/``mxsr`` (:mod:`prifit_torch.nn.pointnet2`)."""
         super().__init__()
         self.num_parts = num_parts
         self.dropout_rate = dropout_rate
@@ -105,11 +107,13 @@ class get_model(nn.Module):
         self.sa1 = SetAbstractionMsg(
             512, [0.1, 0.2, 0.4], [32, 64, 128], 3 + extra,
             [[32, 32, 64], [64, 64, 128], [64, 96, 128]],
-            fused=fused_ball_query, dtype=cfg["sa1"][0])
+            fused=fused_ball_query, dtype=cfg["sa1"][0],
+            max_region=max_region)
         self.sa2 = SetAbstractionMsg(
             128, [0.4, 0.8], [64, 128], 128 + 128 + 64,
             [[128, 128, 256], [128, 196, 256]],
-            fused=fused_ball_query, dtype=cfg["sa2"][0])
+            fused=fused_ball_query, dtype=cfg["sa2"][0],
+            max_region=max_region)
         self.sa3 = SetAbstractionAll(256 + 256 + 3, [256, 512, 1024],
                                      dtype=cfg["sa3"][0])
         self.fp3 = FeaturePropagation(1536, [256, 256], dtype=cfg["fp3"][0])
@@ -133,6 +137,9 @@ class get_model(nn.Module):
         # entropy-weight decay beta *= 0.99 until 0.001 (the JAX
         # package's ``selfsup_state`` collection), in the state_dict
         self.register_buffer("beta", torch.ones(()))
+        # data parallelism: the convex loss's means over shapes reduce
+        # over this group (nn.norm.set_process_group sets it)
+        self.process_group = None
         self.to(resolve_device(device))
 
     def _head(self, x, conv):
@@ -260,7 +267,7 @@ class get_model(nn.Module):
                 include_entropy_loss=include_entropy_loss,
                 include_pruning=include_pruning, alpha=alpha,
                 beta=beta_eff, if_cuboid=if_cuboid, evaluation=evaluation,
-                **draws)
+                group=self.process_group, **draws)
             total_loss, chamfer = convex_out.total, convex_out.chamfer
 
         recon = None
@@ -286,8 +293,8 @@ def get_loss(pred, target, trans_feat=None):
 
 
 def get_selfsup_loss(feat, target, generator=None, margin=0.5,
-                     uniforms=None):
+                     uniforms=None, group=None):
     """The ACD pairwise contrastive loss
     (:func:`prifit_torch.models.common.pairwise_contrastive_loss`)."""
     return pairwise_contrastive_loss(feat, target, generator, margin,
-                                     uniforms=uniforms)
+                                     uniforms=uniforms, group=group)

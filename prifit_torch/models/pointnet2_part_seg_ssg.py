@@ -45,7 +45,7 @@ from prifit_torch.utils.device import resolve_device
 class get_model(nn.Module):
     def __init__(self, num_classes: int, normal_channel: bool = False,
                  dropout_rate: float = 0.5, compute_dtype: str = "auto",
-                 device=None):
+                 max_region: bool = False, device=None):
         """``num_classes``: the part count (the JAX model's name for it).
         ``device``: where the parameters live; CUDA unless the caller
         names another (raises without a GPU)."""
@@ -54,9 +54,9 @@ class get_model(nn.Module):
         extra = 3 if normal_channel else 0
         dt_sa, dt_fp = encoder_dtypes(compute_dtype)
         self.sa1 = SetAbstraction(512, 0.2, 32, 3 + extra, [64, 64, 128],
-                                  dtype=dt_sa)
+                                  dtype=dt_sa, max_region=max_region)
         self.sa2 = SetAbstraction(128, 0.4, 64, 128, [128, 128, 256],
-                                  dtype=dt_sa)
+                                  dtype=dt_sa, max_region=max_region)
         self.sa3 = SetAbstractionAll(256 + 3, [256, 512, 1024], dtype=dt_sa)
         self.fp3 = FeaturePropagation(1280, [256, 256], dtype=dt_fp)
         self.fp2 = FeaturePropagation(384, [256, 128], dtype=dt_fp)

@@ -28,17 +28,20 @@ from prifit_torch.utils.device import resolve_device
 
 class get_model(nn.Module):
     def __init__(self, num_classes: int, with_rgb: bool = True,
-                 channel: int | None = None, device=None):
+                 channel: int | None = None, max_region: bool = False,
+                 device=None):
         """``device``: where the parameters live; CUDA unless the caller
         names another (raises without a GPU)."""
         super().__init__()
         self.with_rgb = with_rgb
         self.channel = channel or (6 if with_rgb else 3)
         self.dropout_rate = 0.5  # the JAX model's (tests set 0)
-        self.sa1 = SetAbstraction(1024, 0.1, 32, self.channel, [32, 32, 64])
-        self.sa2 = SetAbstraction(256, 0.2, 32, 64, [64, 64, 128])
-        self.sa3 = SetAbstraction(64, 0.4, 32, 128, [128, 128, 256])
-        self.sa4 = SetAbstraction(16, 0.8, 32, 256, [256, 256, 512])
+        sa = dict(max_region=max_region)
+        self.sa1 = SetAbstraction(1024, 0.1, 32, self.channel, [32, 32, 64],
+                                  **sa)
+        self.sa2 = SetAbstraction(256, 0.2, 32, 64, [64, 64, 128], **sa)
+        self.sa3 = SetAbstraction(64, 0.4, 32, 128, [128, 128, 256], **sa)
+        self.sa4 = SetAbstraction(16, 0.8, 32, 256, [256, 256, 512], **sa)
         self.fp4 = FeaturePropagation(768, [256, 256])
         self.fp3 = FeaturePropagation(384, [256, 256])
         self.fp2 = FeaturePropagation(320, [256, 128])

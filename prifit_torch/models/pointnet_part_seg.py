@@ -91,8 +91,8 @@ def get_loss(pred, target, trans_feat, mat_diff_loss_scale: float = 0.001):
 
 
 def get_selfsup_loss(feat, target, generator=None, margin=0.5,
-                     uniforms=None):
+                     uniforms=None, group=None):
     """The ACD pairwise contrastive loss
     (:func:`prifit_torch.models.common.pairwise_contrastive_loss`)."""
     return pairwise_contrastive_loss(feat, target, generator, margin,
-                                     uniforms=uniforms)
+                                     uniforms=uniforms, group=group)

@@ -24,14 +24,15 @@ class get_model(msg.get_model):
                  l2_norm: bool = False, reconstruct: bool = False,
                  dropout_rate: float = 0.5, compute_dtype: str = "auto",
                  fused_ball_query: bool = True, stage_dtypes: str = "",
-                 device=None):
+                 max_region: bool = False, device=None):
         """``device``: where the model's parameters live; CUDA unless the
         caller names another (raises without a GPU)."""
         super().__init__(num_parts, normal_channel,
                          reconstruct=reconstruct, dropout_rate=dropout_rate,
                          compute_dtype=compute_dtype,
                          fused_ball_query=fused_ball_query,
-                         stage_dtypes=stage_dtypes, device=device)
+                         stage_dtypes=stage_dtypes, max_region=max_region,
+                         device=device)
         self.l2_norm = l2_norm
 
     def _embed_for_loss(self, feat_embed):
@@ -54,8 +55,8 @@ def get_loss(pred, target, trans_feat=None):
 
 
 def get_selfsup_loss(feat, target, generator=None, margin=0.5,
-                     uniforms=None):
+                     uniforms=None, group=None):
     """The ACD pairwise contrastive loss
     (:func:`prifit_torch.models.common.pairwise_contrastive_loss`)."""
     return pairwise_contrastive_loss(feat, target, generator, margin,
-                                     uniforms=uniforms)
+                                     uniforms=uniforms, group=group)

@@ -38,7 +38,8 @@ from prifit_torch.utils.device import resolve_device
 
 class get_model(nn.Module):
     def __init__(self, num_classes: int, normal_channel: bool = False,
-                 dropout_rate: float = 0.5, device=None):
+                 dropout_rate: float = 0.5, max_region: bool = False,
+                 device=None):
         """``num_classes``: the part count.  ``device``: where the
         parameters live; CUDA unless the caller names another (raises
         without a GPU)."""
@@ -47,10 +48,11 @@ class get_model(nn.Module):
         extra = 3 if normal_channel else 0
         self.sa1 = SetAbstractionMsg(
             512, [0.1, 0.2, 0.4], [32, 64, 128], 3 + extra,
-            [[32, 32, 64], [64, 64, 128], [64, 96, 128]])
+            [[32, 32, 64], [64, 64, 128], [64, 96, 128]],
+            max_region=max_region)
         self.sa2 = SetAbstractionMsg(
             128, [0.4, 0.8], [64, 128], 128 + 128 + 64,
-            [[128, 128, 256], [128, 196, 256]])
+            [[128, 128, 256], [128, 196, 256]], max_region=max_region)
         self.sa3 = SetAbstractionAll(256 + 256 + 3, [256, 512, 1024])
         self.fp3 = FeaturePropagation(1536, [256, 256])
         self.fp2 = FeaturePropagation(576, [256, 128])
@@ -107,11 +109,11 @@ def get_loss(pred, target, trans_feat=None):
 
 
 def get_selfsup_loss(feat, target, generator=None, margin=0.5,
-                     uniforms=None):
+                     uniforms=None, group=None):
     """The ACD pairwise contrastive loss
     (:func:`prifit_torch.models.common.pairwise_contrastive_loss`)."""
     return pairwise_contrastive_loss(feat, target, generator, margin,
-                                     uniforms=uniforms)
+                                     uniforms=uniforms, group=group)
 
 
 def get_rec_selfsup_loss(feat, target, pts, gtpts, generator=None,

@@ -12,10 +12,40 @@ With ``charts``, one batch norm a chart of a chart-stacked input
 ``[charts, rows, F]``: parameters and statistics ``[charts, F]``, each
 chart's statistics over its rows (the JAX package's ``BatchNorm`` under
 ``nn.vmap`` over a chart axis, as AtlasNet's decoder runs it).
+
+Cross-replica statistics: ``process_group`` (the JAX package's
+``axis_name``) sums the batch's ``sum x`` and ``sum x^2`` over the group's
+ranks (a :func:`~prifit_torch.parallel.collectives.psum`, whose backward
+sums the cotangents, so the gradient is that of the global statistics),
+and the moments and the unbiased running variance take the global row
+count: the statistics of the global batch, as the JAX package's
+data-parallel step computes them under its partitioner.  The model owns
+its group: :func:`set_process_group` sets it once, after the model is
+built, and the train steps read it back (:func:`process_group_of`).
 """
 
 import torch
 from torch import nn
+
+from prifit_torch.parallel.collectives import group_size, psum
+
+
+def set_process_group(module: nn.Module, group) -> nn.Module:
+    """Give ``module`` and every submodule of it that has a
+    ``process_group`` attribute (each :class:`BatchNorm`, and the models
+    whose losses reduce over the batch) the data-parallel ``group``
+    (None: local statistics).  Returns ``module``."""
+    for m in module.modules():
+        if hasattr(m, "process_group"):
+            m.process_group = group
+    module.process_group = group
+    return module
+
+
+def process_group_of(module: nn.Module):
+    """The data-parallel group :func:`set_process_group` gave ``module``
+    (None if it gave none)."""
+    return getattr(module, "process_group", None)
 
 
 class BatchNorm(nn.Module):
@@ -24,6 +54,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.charts = charts
+        self.process_group = None
         shape = (num_features,) if charts is None else (charts, num_features)
         self.weight = nn.Parameter(torch.ones(shape))
         self.bias = nn.Parameter(torch.zeros(shape))
@@ -42,8 +73,15 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             x32 = x.float()
-            mean = torch.mean(x32, dim=dims)
-            mean2 = torch.mean(x32 * x32, dim=dims)
+            group = self.process_group
+            if group_size(group) > 1:
+                rows *= group_size(group)
+                s = psum(torch.stack([x32.sum(dim=dims),
+                                      (x32 * x32).sum(dim=dims)]), group)
+                mean, mean2 = s[0] / rows, s[1] / rows
+            else:
+                mean = torch.mean(x32, dim=dims)
+                mean2 = torch.mean(x32 * x32, dim=dims)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
             self.update_running(mean, var, momentum, rows)
         weight, bias = self.weight, self.bias

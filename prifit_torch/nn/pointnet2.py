@@ -20,6 +20,17 @@ chain and each FP chain as one mixed-precision region
 cotangents stochastically, with a key per region (``sr_key`` below: two
 uint32 words), which training in that mode requires (``mx_chain`` raises
 without one).
+
+``max_region`` (the JAX package's ``PRIFIT_MAX_REGION=on``, off by
+default there too): a training SA scale outside the ``mx``/``mxsr``
+region runs its last layer and the K-max as the closed-form region
+(:func:`max_region_last`, ``PointMLP.call_max`` in the JAX package), in
+bf16 storage for a bf16 encoder and f32 storage otherwise; its backward
+is kernels #7 and #8.
+
+Data parallelism: each batch norm's ``process_group`` (set by
+:func:`prifit_torch.nn.norm.set_process_group`) makes its statistics,
+and those of the regions it belongs to, global over the group.
 """
 
 import torch
@@ -27,6 +38,7 @@ from torch import nn
 
 from prifit_torch.nn.mixed import MX, MXSR, mx_chain
 from prifit_torch.nn.norm import BatchNorm
+from prifit_torch.parallel.collectives import group_size
 from prifit_torch.ops.sampling import (
     ball_query_nearest_shared,
     farthest_points,
@@ -61,6 +73,13 @@ def eff(dtype):
     return torch.bfloat16 if dtype in (MX, MXSR) else dtype
 
 
+def _group_rows(bn, x) -> tuple:
+    """``(group, global row count)`` of a region that holds batch norm
+    ``bn`` and takes ``x`` (rows: every axis but the last)."""
+    group = bn.process_group
+    return group, x.numel() // x.shape[-1] * group_size(group)
+
+
 def region(dtype, x, pre_bn, convs, bns, has_max: bool, bn_momentum: float,
            sr_key):
     """``x`` through the mixed-precision region of ``dtype`` (``MX`` or
@@ -73,14 +92,32 @@ def region(dtype, x, pre_bn, convs, bns, has_max: bool, bn_momentum: float,
     sr = dtype == MXSR
     chain = tuple((conv_weight(c), c.bias, bn.weight, bn.bias)
                   for c, bn in zip(convs, bns))
+    norms = ([] if pre_bn is None else [pre_bn]) + list(bns)
+    group, rows = _group_rows(norms[0], x)
     out, stats = mx_chain(
         (pre_bn is not None, has_max, sr),
         x.to(torch.bfloat16 if sr else torch.float32),
         (None if pre_bn is None else (pre_bn.weight, pre_bn.bias), chain),
-        sr_key)
-    norms = ([] if pre_bn is None else [pre_bn]) + list(bns)
+        sr_key, group=group)
     for bn, (mean, var) in zip(norms, stats):
-        bn.update_running(mean, var, bn_momentum, x.numel() // x.shape[-1])
+        bn.update_running(mean, var, bn_momentum, rows)
+    return out
+
+
+def max_region_last(conv, bn, x, dtype, bn_momentum: float):
+    """The last layer of an SA scale's chain and the K-max over axis -2 of
+    ``x [B, S, K, Fi]`` as the closed-form K-max region
+    (``PointMLP.call_max`` in the JAX package): ``mx_chain((False, True,
+    False), ...)`` in bf16 storage when the chain's array dtype is bf16,
+    else f32.  Updates ``bn``'s running statistics from the region's."""
+    storage = torch.bfloat16 if eff(dtype) == torch.bfloat16 \
+        else torch.float32
+    group, rows = _group_rows(bn, x)
+    out, stats = mx_chain(
+        (False, True, False), x,
+        (None, ((conv_weight(conv), conv.bias, bn.weight, bn.bias),)),
+        storage=storage, group=group)
+    bn.update_running(*stats[0], bn_momentum, rows)
     return out
 
 
@@ -190,11 +227,12 @@ def fps_start(xyz: torch.Tensor, train: bool,
 
 def sa_scale(convs, bns, d_in: int, xyz, points, new_xyz, idx, dtype,
              bn_momentum: float, train: bool, sr_key,
-             xyz_first: bool = False):
+             xyz_first: bool = False, max_region: bool = False):
     """One SA scale, ``[B, S, F_last]``: the grouped first layer, the MLP
     chain and the max over the neighbours, as one mixed-precision region
     when training in ``MX``/``MXSR`` (``_run_scale`` in the JAX
-    package)."""
+    package); otherwise, with ``max_region`` when training (not ``FQ``),
+    the last layer and the max as :func:`max_region_last`."""
     if train and dtype in (MX, MXSR):
         pre = gfl_pre_tensor(convs[0], d_in, xyz, points, new_xyz, idx,
                              xyz_first)
@@ -202,6 +240,9 @@ def sa_scale(convs, bns, d_in: int, xyz, points, new_xyz, idx, dtype,
                       bn_momentum, sr_key)
     h = grouped_first_layer(convs[0], bns[0], d_in, xyz, points, new_xyz,
                             idx, dtype, bn_momentum, xyz_first)
+    if train and max_region and dtype != FQ and len(convs) > 1:
+        h = point_mlp(convs[1:-1], bns[1:-1], h, dtype, bn_momentum)
+        return max_region_last(convs[-1], bns[-1], h, dtype, bn_momentum)
     h = point_mlp(convs[1:], bns[1:], h, dtype, bn_momentum)
     return torch.amax(h, dim=-2)
 
@@ -213,8 +254,9 @@ class SetAbstractionMsg(nn.Module):
 
     def __init__(self, npoint: int, radius_list, nsample_list,
                  in_channel: int, mlp_list, fused: bool = True,
-                 dtype=None):
+                 dtype=None, max_region: bool = False):
         super().__init__()
+        self.max_region = max_region
         self.npoint = npoint
         self.radius_list = list(radius_list)
         self.nsample_list = list(nsample_list)
@@ -251,7 +293,8 @@ class SetAbstractionMsg(nn.Module):
                                         self.nsample_list)]
         outs = [sa_scale(convs, bns, self.d_in, xyz, points, new_xyz, idx,
                          self.dtype, bn_momentum, train,
-                         None if sr_keys is None else sr_keys[i])
+                         None if sr_keys is None else sr_keys[i],
+                         max_region=self.max_region)
                 for i, (idx, convs, bns) in enumerate(zip(
                     idx_list, self.conv_blocks, self.bn_blocks))]
         return new_xyz, torch.cat(outs, dim=-1)
@@ -267,8 +310,10 @@ class SetAbstraction(nn.Module):
     names are the reference's (``mlp_convs.{j}``, ``mlp_bns.{j}``)."""
 
     def __init__(self, npoint: int, radius: float, nsample: int,
-                 in_channel: int, mlp, fused: bool = True, dtype=None):
+                 in_channel: int, mlp, fused: bool = True, dtype=None,
+                 max_region: bool = False):
         super().__init__()
+        self.max_region = max_region
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
@@ -297,7 +342,8 @@ class SetAbstraction(nn.Module):
             idx = query_ball_point(self.radius, self.nsample, xyz, new_xyz)
         return new_xyz, sa_scale(self.mlp_convs, self.mlp_bns, self.d_in,
                                  xyz, points, new_xyz, idx, self.dtype,
-                                 bn_momentum, train, sr_key, xyz_first=True)
+                                 bn_momentum, train, sr_key, xyz_first=True,
+                                 max_region=self.max_region)
 
 
 class SetAbstractionAll(nn.Module):

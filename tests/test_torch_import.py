@@ -67,11 +67,9 @@ def test_no_jax_import(path):
 NOT_EXPORTED = {
     ("nn", "PointMLP"): "folded into the function nn/pointnet2.py::point_mlp "
                         "over its layer's convs and bns",
-    ("data", "shard_for_host"): "the parallelism slice (multi-host data "
-                                "sharding)",
 }
 SUBPACKAGES = ("geometry", "clustering", "ops", "utils", "nn", "models",
-               "train", "data")
+               "train", "data", "parallel")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
@@ -126,10 +124,19 @@ def test_kernel_wrappers_never_fall_back():
         lambda: cnt_gsm(z, rows, rows, rows, key),
         lambda: dz(z, rows, rows, vec, vec, vec, vec, key),
         lambda: sr_bf16(key, X),
+        # f32 storage (the f32-storage K-max region) takes the kernels too
+        lambda: cnt_gsm(z.float(), rows.float(), rows, rows.float(), None),
+        lambda: dz(z.float(), rows.float(), vec[None].expand(8, 32),
+                   vec, vec, vec, vec, None),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
+    # any other storage dtype, and rounding at f32 storage, are refused
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        cnt_gsm(z.half(), rows.half(), rows, rows.half(), None)
+    with pytest.raises(ValueError, match="bf16 storage"):
+        dz(z.float(), rows.float(), rows, vec, vec, vec, vec, key)
 
 
 def test_small_entry_runs_on_cpu_when_asked():

@@ -393,7 +393,8 @@ def test_sr_expectation_matches_jax_and_draws_are_unbiased(monkeypatch):
     pre, params, g = _chain_inputs(rng, cfg, False)
     monkeypatch.setattr(JM, "sr_bf16", lambda k, x: x)
     _, _, jexp = _jax_chain(cfg, True, pre, params, g, _jkey(KEY))
-    monkeypatch.setattr(stochastic_round, "sr_bf16_plain", lambda k, x: x)
+    monkeypatch.setattr(stochastic_round, "sr_bf16_plain",
+                        lambda k, x, *a: x)
     _, _, texp = _port_chain(cfg, True, pre, params, g, KEY)
     monkeypatch.undo()
     for name, ref in jexp.items():
@@ -430,9 +431,9 @@ def test_region_keys_follow_forward_call_order(monkeypatch):
     calls = []
     real = tpn2.mx_chain
 
-    def record(cfg, pre, params, key=None):
+    def record(cfg, pre, params, key=None, **k):
         calls.append((cfg[:2], pre.dtype, key))
-        return real(cfg, pre, params, key)
+        return real(cfg, pre, params, key, **k)
 
     monkeypatch.setattr(tpn2, "mx_chain", record)
     rng = np.random.default_rng(0)

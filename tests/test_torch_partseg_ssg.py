@@ -335,9 +335,9 @@ def test_mxsr_regions_and_keys(monkeypatch):
     calls = []
     real = tpn2.mx_chain
 
-    def record(cfg, pre, params, key=None):
+    def record(cfg, pre, params, key=None, **k):
         calls.append((cfg[:2], key))
-        return real(cfg, pre, params, key)
+        return real(cfg, pre, params, key, **k)
 
     monkeypatch.setattr(tpn2, "mx_chain", record)
     model = tssg.get_model(PARTS, dropout_rate=0.0, device="cpu").train()

@@ -8,9 +8,9 @@ the default encoder dtype and its resume (``epoch``, ``step`` and the
 self-sup ``beta`` restored), a contrastive epoch, a ``--fused_augment``
 epoch, an ``--init_cls`` warm start from a saved checkpoint (with the
 classifier re-init cut to one epoch) and epochs of the ``--extra_layers``
-and ``--reconstruct`` variants.  The flags the port cannot run yet raise
-``NotImplementedError``, and the registry's classification and
-semantic-segmentation models a ``TypeError`` (the trainer builds
+and ``--reconstruct`` variants.  ``--sp_points 2`` in one process exits
+with the JAX trainer's check, and the registry's classification and
+semantic-segmentation models raise a ``TypeError`` (the trainer builds
 part-seg models); the trainer's other part-seg models are run by
 ``test_torch_trainer_models.py``.
 """
@@ -175,16 +175,17 @@ def test_train_init_class_touches_only_conv2(roots):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (("--sp_points", "2"), NotImplementedError, "item 5"),
+    (("--sp_points", "2"), SystemExit, "must divide the device count"),
     (("--model", "pointnet_cls"), TypeError, "part-seg models"),
     (("--model", "pointnet2_cls_msg"), TypeError, "part-seg models"),
     (("--model", "pointnet2_sem_seg"), TypeError, "part-seg models"),
 ])
 def test_unported_flags_raise(roots, tmp_path, extra, error, match):
-    """``--sp_points`` above 1 is not ported; the classification and
-    sem-seg models are, but the trainer builds part-seg models only and
-    refuses them with a ``TypeError``, as the JAX trainer's
-    ``build_model`` fails on their constructors."""
+    """``--sp_points 2`` in one process fails the JAX trainer's check
+    (the point axis needs as many ranks), before anything is written;
+    the classification and sem-seg models are ported, but the trainer
+    builds part-seg models only and refuses them with a ``TypeError``,
+    as the JAX trainer's ``build_model`` fails on their constructors."""
     with pytest.raises(error, match=match):
         T.main(_args(roots, tmp_path, "--selfsup", *extra), device="cpu")
     assert not os.listdir(tmp_path)
