@@ -131,6 +131,16 @@ counts set to 0 just before it and read just after:
     ``mxsr``, bandwidth and NMS on the gathered modes on the card), held
     against world size 1 and the unsharded clustering and self-sup
     step.
+  - the few-shot lift experiment (``lift`` phase, ``lift_phase``): the
+    port's generator writes a reduced lift benchmark (8 categories of 12
+    labelled shapes and 96 ACD shapes, N=2048), then
+    ``prifit_torch.tools.run_fewshot_matrix`` at k=1, seed 786, arms
+    ``sup``, ``con`` and ``pre_con`` (a 1-epoch contrastive pretrain) for
+    2 epochs of 8 iterations at B=8, each record well formed, every
+    iteration's launches exact; then ``prifit_torch.tools.
+    probe_embedding`` on 8 test shapes in ``feat`` space at random init
+    and on the pretrain's ``best_model``, each batch's launches exact
+    (bandwidth 1, mean-shift 10, NMS 3), in under 150 s.
 
 It checks that every kernel was launched by the paths that run it, and
 no other, and that every cotangent the mean-shift backward gets on the
@@ -166,7 +176,7 @@ It prints:
   - the pretrainer's ms per iteration beside the bare self-sup step and
     per val batch, with the launches of each;
   - one JSON line ``{"kernels": [...]}`` with, per kernel, its launches on
-    the thirty-six paths (and their sum; ``max_region_f32`` the region's
+    the forty-two paths (and their sum; ``max_region_f32`` the region's
     three timed f32 steps, ``parallel_dryrun`` the one-rank NCCL dry run,
     ``parallel_sp_cluster`` and ``parallel_sp_step`` rank 0's sharded
     clustering and its second point-SP step; ``fitting``, ``library`` and
@@ -175,11 +185,12 @@ It prints:
     trainer run with its eval, ``pretrainer`` and ``pretrain_val`` the
     pretrain run's iterations and val batches, ``extra_layers`` and
     ``reconstruct`` those trainer runs, ``model_<name>`` the ``models``
-    phase's runs) and per trainer iteration, per pretrain iteration, per
-    pretrain val batch and per iteration of each of the ``models``
-    phase's runs (``probe`` is the two probes' launches of the
-    ``registry`` phase, ``model_<name>`` also each registry model's
-    run), its error against the
+    phase's runs, ``lift_<run>`` and ``lift_probe_<tag>`` the ``lift``
+    phase's runs and probes) and per trainer iteration, per pretrain
+    iteration, per pretrain val batch and per iteration of each of the
+    ``models`` and ``lift`` phases' runs (``probe`` is the two probes'
+    launches of the ``registry`` phase, ``model_<name>`` also each
+    registry model's run), its error against the
     plain version, and the times of the calls one forward or one step
     makes (kernel, plain version, library call) beside the least time the
     card could take for that work; ``sr_bf16`` has no TPU kernel (``tpu_kernel``
@@ -4378,6 +4389,218 @@ def log_parallel(par, smi):
         f"{par['fit_counts']}, of one point-SP step {par['counts']}")
 
 
+# ------------------------------------------------- the lift experiment
+
+# the reduced lift benchmark: the matrix's 8 categories at full width, 12
+# labelled shapes a category (6 train, 3 val, 3 test) and 96 ACD shapes
+LIFT_TREE = dict(n_cats=8, n_per_cat=12, n_acd=96, n_points=N, seed=0)
+# k=1 gives B = min(8, 1 x 8) = 8; the pretrain takes --batch_size too,
+# and at 8 its 20% val split of the 96 ACD shapes is 2 batches
+LIFT_FLAGS = ["--k_shots", "1", "--seeds", "786", "--arms", "sup,con,pre_con",
+              "--pre_epochs", "1", "--epochs", "2", "--epoch_iters", "8",
+              "--batch_size", "8", "--npoint", str(N)]
+LIFT_PROBE = ["--n", "8", "--batch", "4", "--space", "feat",
+              "--npoint", str(N)]
+# launches of one mxsr step at any batch: the supervised step, the
+# contrastive step (the encoder's alone); and of one eval forward without
+# the convex loss
+SUP_STEP = dict(fps=2, gather=10, max_bwd_cnt_gsm=6, max_bwd_dz=6,
+                sr_bf16=40)
+FORWARD = dict(fps=2, gather=10)
+# a lift run's iteration: sup and pre_con a supervised step, con a
+# supervised and a contrastive step, the contrastive pretrain one
+# contrastive step
+LIFT_ITERATION = {"sup": SUP_STEP, "pre_con": SUP_STEP,
+                  "con": {k: 2 * v for k, v in SUP_STEP.items()},
+                  "pretrain": SUP_STEP}
+# a probe batch: the eval forward, then cluster_batch's first bandwidth
+# candidate (bandwidth, 10 mean-shift steps, NMS)
+LIFT_PROBE_BATCH = dict(FORWARD, bandwidth=1, mean_shift=10, nms=3)
+
+
+def _expected(counts, want):
+    return {k: want.get(k, 0) for k in counts}
+
+
+def _flag(flags, name):
+    return flags[flags.index(name) + 1]
+
+
+class _LiftHooks:
+    """Wraps the two CLIs' ``main`` for the matrix tool's in-process
+    runs: a synchronize, the host clock and the launch counts after each
+    train iteration, per run."""
+
+    def __init__(self, kernels, modules):
+        self.kernels, self.modules, self.runs = kernels, modules, []
+
+    def __enter__(self):
+        self.saved = [m.main for m in self.modules]
+        for m, main in zip(self.modules, self.saved):
+            m.main = self._wrap(m.__name__.rsplit(".", 1)[1], main)
+        return self
+
+    def __exit__(self, *exc):
+        for m, main in zip(self.modules, self.saved):
+            m.main = main
+
+    def _wrap(self, cli, main):
+        def run(args, device=None, on_iteration=None, **kw):
+            marks = []
+
+            def hook(epoch, i):
+                torch.cuda.synchronize()
+                marks.append((epoch, time.perf_counter(),
+                              self.kernels.launch_counts()))
+                if on_iteration is not None:
+                    on_iteration(epoch, i)
+
+            t0 = time.perf_counter()
+            start = self.kernels.launch_counts()
+            try:
+                return main(args, device=device, on_iteration=hook, **kw)
+            finally:
+                self.runs.append(dict(
+                    cli=cli, args=args, marks=marks, start=start,
+                    end=self.kernels.launch_counts(),
+                    wall_s=time.perf_counter() - t0))
+        return run
+
+
+def _lift_run_summary(r):
+    """Each iteration's launches, the median ms an iteration (the walls
+    within an epoch, after its first iteration) and the run's launches."""
+    counts, walls = [], []
+    prev = (None, None, r["start"])
+    for m in r["marks"]:
+        counts.append({k: m[2][k] - prev[2][k] for k in m[2]})
+        if prev[0] == m[0]:
+            walls.append(m[1] - prev[1])
+        prev = m
+    total = {k: r["end"][k] - r["start"][k] for k in r["end"]}
+    return counts, walls, total
+
+
+def lift_phase(kernels):
+    """The few-shot lift experiment (``prifit_torch.tools``) on the card at
+    full width: the reduced lift benchmark written by the port's generator
+    (``LIFT_TREE``: 8 categories, 12 labelled shapes a category, 96 ACD
+    shapes, N=2048), then ``run_fewshot_matrix`` at k=1, seed 786, arms
+    ``sup``, ``con`` and ``pre_con`` (a 1-epoch contrastive pretrain) for
+    2 epochs of 8 iterations at B=8, each run's record well formed with a
+    finite class-average mIoU and each iteration's launches exact
+    (``LIFT_ITERATION``); then ``probe_embedding`` on 8 test shapes in
+    ``feat`` space at random init and on the pretrain's ``best_model``,
+    each batch's launches exact (``LIFT_PROBE_BATCH``)."""
+    import shutil
+    import tempfile
+
+    from prifit_torch.cli import pretrain_partseg, train_partseg
+    from prifit_torch.tools import probe_embedding, run_fewshot_matrix
+    from prifit_torch.tools.synthetic_primitive_dataset import \
+        make_lift_benchmark
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "log"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="lift_", dir=os.path.join(ROOT, "log"))
+    try:
+        t0 = time.perf_counter()
+        make_lift_benchmark(root, **LIFT_TREE)
+        write_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        with _LiftHooks(kernels, (train_partseg, pretrain_partseg)) as hooks:
+            run_fewshot_matrix.main(["--data", root, "--device", "cuda"]
+                                    + LIFT_FLAGS)
+        with open(os.path.join(root, "results.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        if [r["config"]["arm"] for r in recs] != ["sup", "con", "pre_con"]:
+            raise AssertionError(f"lift records {recs}")
+        for r in recs:
+            keys = {"config", "metrics", "wall_s", "exp_dir"} | (
+                {"pretrain_ckpt"} if r["config"]["arm"] == "pre_con"
+                else set())
+            if set(r) != keys or r["config"]["batch_size"] != int(
+                    _flag(LIFT_FLAGS, "--batch_size")) or not (
+                    0.0 <= r["metrics"]["class_avg_iou"] <= 1.0):
+                raise AssertionError(f"lift record {r}")
+        if [h["cli"] for h in hooks.runs] != ["train_partseg", "train_partseg",
+                                              "pretrain_partseg",
+                                              "train_partseg"]:
+            raise AssertionError(f"lift runs {[h['cli'] for h in hooks.runs]}")
+        runs = {}
+        for name, h in zip(("sup", "con", "pretrain", "pre_con"), hooks.runs):
+            counts, walls, total = _lift_run_summary(h)
+            want = _expected(counts[0], LIFT_ITERATION[name])
+            bad = [c for c in counts if c != want]
+            if bad or not counts:
+                raise AssertionError(f"lift {name} iteration launched "
+                                     f"{bad[:1] or counts}, not {want}")
+            runs[name] = dict(iters=len(counts), walls=walls, total=total,
+                              wall_s=h["wall_s"], last=counts[-1])
+        for name, r in zip(("sup", "con", "pre_con"), recs):
+            runs[name].update(miou=r["metrics"]["class_avg_iou"],
+                              record_wall_s=r["wall_s"])
+
+        probes = {}
+        for tag, ckpt in (("random-init", []), (
+                "pre_con pretrain", ["--ckpt", recs[2]["pretrain_ckpt"]])):
+            marks = []
+            cluster = probe_embedding.cluster_batch
+
+            def counted(*a, **kw):
+                out = cluster(*a, **kw)
+                torch.cuda.synchronize()
+                marks.append(kernels.launch_counts())
+                return out
+
+            probe_embedding.cluster_batch = counted
+            kernels.reset_launch_counts()
+            zero = kernels.launch_counts()
+            t0 = time.perf_counter()
+            try:
+                nmi, clusters = probe_embedding.main(
+                    ["--data", root, "--device", "cuda"] + LIFT_PROBE + ckpt)
+            finally:
+                probe_embedding.cluster_batch = cluster
+            wall = time.perf_counter() - t0
+            per_batch = [{k: b[k] - a[k] for k in b}
+                         for a, b in zip([zero] + marks, marks)]
+            want = _expected(zero, LIFT_PROBE_BATCH)
+            n, b = (int(_flag(LIFT_PROBE, f)) for f in ("--n", "--batch"))
+            if len(per_batch) != -(-n // b) or any(c != want
+                                                   for c in per_batch):
+                raise AssertionError(f"probe batches launched {per_batch}, "
+                                     f"not {want}")
+            if not (np.isfinite(nmi).all() and len(nmi) == n):
+                raise AssertionError(f"probe NMI {nmi}")
+            probes[tag] = dict(nmi=nmi, clusters=clusters, wall_s=wall,
+                               counts=_sum_counts(per_batch))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > 150:
+        raise AssertionError(f"the lift phase took {phase_s:.1f} s")
+    return dict(runs=runs, probes=probes, write_s=write_s, phase_s=phase_s)
+
+
+def log_lift(lift, smi):
+    for name, r in lift["runs"].items():
+        miou = (f"; class-avg mIoU {r['miou']:.4f}, record wall_s "
+                f"{r['record_wall_s']}" if "miou" in r else "")
+        log(f"lift {name} (B={_flag(LIFT_FLAGS, '--batch_size')}, N={N}, "
+            f"{r['iters']} iterations): "
+            f"{r['wall_s']:.1f} s, {_ms(r['walls'])} ms an iteration "
+            f"({_spread(r['walls'])}) [{smi}]{miou}; launches an iteration "
+            f"{r['last']}, in the run {r['total']}")
+    for tag, p in lift["probes"].items():
+        log(f"lift probe [{tag}] {' '.join(LIFT_PROBE)}: NMI "
+            f"{np.round(p['nmi'], 4).tolist()} (mean {np.mean(p['nmi']):.4f})"
+            f", clusters a shape {p['clusters'].tolist()}; {p['wall_s']:.1f} "
+            f"s [{smi}]; launches {p['counts']}")
+    log(f"lift phase: {lift['phase_s']:.1f} s (tree written in "
+        f"{lift['write_s']:.1f} s)")
+
+
 # ------------------------------------------ four cards (--four-cards)
 
 FOUR_DIR = os.path.join(ROOT, "log", "four_cards")
@@ -4769,6 +4992,8 @@ def main():
                                     "bound_ms", "bound_by")}
     par = parallel_phase(entry, kernels)
     log_parallel(par, smi)
+    lift = lift_phase(kernels)
+    log_lift(lift, smi)
     tc = train_card_vs_cpu(entry)
     log(f"card vs cpu train B=2 f32: supervised loss {tc['loss'][0]:.7f} "
         f"(card) {tc['loss'][1]:.7f} (cpu) {tc['loss'][2]:.7f} (cpu f64), "
@@ -4850,6 +5075,10 @@ def main():
     paths["parallel_dryrun"] = par["dry_counts"]
     paths["parallel_sp_cluster"] = par["fit_counts"]
     paths["parallel_sp_step"] = par["counts"]
+    paths.update({f"lift_{name}": r["total"]
+                  for name, r in lift["runs"].items()})
+    paths.update({f"lift_probe_{tag.split()[0]}": p["counts"]
+                  for tag, p in lift["probes"].items()})
     rows = []
     for name, k in kernels.KERNELS.items():
         r = results[name]
@@ -4865,6 +5094,8 @@ def main():
                 name],
             launches_per_model_iteration={
                 m: r["last"][name] for m, r in models.items()},
+            launches_per_lift_iteration={
+                m: r["last"][name] for m, r in lift["runs"].items()},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],

@@ -1,6 +1,6 @@
 """Evaluation (port of ``prifit_tpu/eval``): part-segmentation mIoU
-(``miou``, ``eval_utils``) and the ModelNet40 linear-SVM probe
-(``svm_probe``)."""
+(``miou``, ``eval_utils``), the ModelNet40 linear-SVM probe
+(``svm_probe``) and normalized mutual information (``nmi``)."""
 
 from prifit_torch.eval.eval_utils import mean_IOU_one_sample
 from prifit_torch.eval.miou import (
@@ -10,6 +10,7 @@ from prifit_torch.eval.miou import (
     make_eval_forward,
     mean_iou_one_sample,
 )
+from prifit_torch.eval.nmi import normalized_mutual_info
 from prifit_torch.eval.svm_probe import (
     LinearSVC,
     extract_global_features,
@@ -27,5 +28,6 @@ __all__ = [
     "make_feature_forward",
     "mean_IOU_one_sample",
     "mean_iou_one_sample",
+    "normalized_mutual_info",
     "svm_probe",
 ]

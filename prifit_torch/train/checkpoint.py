@@ -102,11 +102,10 @@ def _merge(fresh: dict, restored: dict):
     return merged, missing, matched
 
 
-def restore_params_only(directory: str, name: str, state: TrainState,
-                        log=print) -> TrainState:
-    """Warm-start the model's weights from a checkpoint
-    (``--pretrained_model``, reference ``train:276-280``): parameters,
-    batch-norm statistics and ``beta``, with the optimizer left fresh.
+def load_params(model: torch.nn.Module, directory: str, name: str,
+                log=print) -> list:
+    """Merge a checkpoint's weights into ``model`` (in place) and return
+    the names the checkpoint lacks, which keep the model's own values.
 
     Keeps the JAX package's merge semantics: the checkpoint is merged into
     the fresh model, which keeps its own values for entries the
@@ -125,7 +124,7 @@ def restore_params_only(directory: str, name: str, state: TrainState,
         if meta:
             log(f"checkpoint metadata keys: {meta}")
         ckpt = ckpt["model_state_dict"]
-    merged, missing, matched = _merge(state.model.state_dict(), ckpt)
+    merged, missing, matched = _merge(model.state_dict(), ckpt)
     if matched == 0:
         raise ValueError(
             f"warm-start: checkpoint {directory}/{name} matched ZERO "
@@ -134,7 +133,17 @@ def restore_params_only(directory: str, name: str, state: TrainState,
     for m in missing:
         log(f"warm-start: keeping fresh init for {m} "
             f"(absent from checkpoint)")
-    state.model.load_state_dict(merged, strict=True)
+    model.load_state_dict(merged, strict=True)
+    return missing
+
+
+def restore_params_only(directory: str, name: str, state: TrainState,
+                        log=print) -> TrainState:
+    """Warm-start the model's weights from a checkpoint
+    (``--pretrained_model``, reference ``train:276-280``): parameters,
+    batch-norm statistics and ``beta``, merged as :func:`load_params`
+    merges them, with the optimizer left fresh."""
+    load_params(state.model, directory, name, log=log)
     return state
 
 

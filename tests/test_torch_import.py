@@ -5,6 +5,7 @@ asked.  Its sub-packages export the JAX package's public names."""
 import ast
 import importlib
 import inspect
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -60,6 +61,48 @@ def test_no_jax_import(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "prifit_tpu"), (
                 f"{path.name} imports {name}")
+
+
+# the lift experiment's tools and their NMI: none may reach the JAX side's
+# ``tools/`` scripts, scikit-learn or matplotlib (the card's machine has
+# neither), or hard-code an absolute path
+TOOL_FILES = sorted((ROOT / "prifit_torch" / "tools").glob("*.py")) + [
+    ROOT / "prifit_torch" / "eval" / "nmi.py"]
+TOOL_FORBIDDEN = ("jax", "jaxlib", "flax", "prifit_tpu", "tools", "sklearn",
+                  "matplotlib")
+
+
+@pytest.mark.parametrize("path", TOOL_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_tools_stand_alone(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not re.match(r"/\w", node.value), (
+                f"{path.name} hard-codes the path {node.value!r}")
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in TOOL_FORBIDDEN, (
+                f"{path.name} imports {name}")
+
+
+def test_tools_import_without_sklearn_or_matplotlib():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('jax', 'prifit_tpu', 'tools', 'sklearn', "
+        "'matplotlib'):\n"
+        "    sys.modules[name] = None\n"
+        "import prifit_torch.tools as t, prifit_torch.eval.nmi\n"
+        "for m in pkgutil.walk_packages(t.__path__, 'prifit_torch.tools.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert all(callable(getattr(t, n)) or isinstance(getattr(t, n), "
+        "str) for n in t.__all__)\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
 
 
 # the names of a JAX sub-package's ``__all__`` that the port does not
