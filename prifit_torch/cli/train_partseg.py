@@ -156,9 +156,11 @@ def check_supported(args) -> None:
 def build_model(args, mod, device):
     """The model of ``args`` (reference ``train_partseg_shapenet.py:
     219-232``, the JAX trainer's ``build_model`` with its per-name
-    arguments) on ``device``, with lecun-normal weights from ``--seed``
-    (:func:`prifit_torch.entry.init_weights`) and fresh batch-norm
-    statistics.  ``dgcnn`` takes ``--dgcnn_k`` neighbours, SSG the
+    arguments) on ``device``, with weights drawn from ``--seed`` as the
+    JAX model's ``init`` draws them (:func:`prifit_torch.entry.
+    init_weights`: flax's truncated lecun-normal kernels, std
+    1/sqrt(fan_in), a grouped first layer's xyz and feature columns each
+    at its own fan-in; zero biases) and fresh batch-norm statistics.  ``dgcnn`` takes ``--dgcnn_k`` neighbours, SSG the
     encoder dtype, PointNet and reconstruction no dtype (f32);
     ``--reconstruct`` goes to either MSG model, ``--l2_norm`` to
     ``pretrain_pointnet2_part_seg_msg`` only and ``--extra_layers`` to

@@ -9,9 +9,14 @@ mode, run with the convex self-sup loss against the input cloud itself;
 and, in train mode, the supervised step and the self-sup step, at the
 default encoder dtype (``"auto"`` = ``mxsr``, ``bench.py``'s headline
 train fields) or with the f32 encoder (its secondary ones).  Weights are
-random, made from a seed (lecun-normal kernels and zero biases, the JAX
-package's initializers; fresh batch-norm statistics).
+random, made from a seed by :func:`init_weights`, which draws each
+parameter as the JAX package's initializers do: flax's lecun-normal
+kernels (a normal truncated at +-2 with std 1/sqrt(fan_in)), a grouped
+first layer's xyz and feature columns apart at their own fan-ins, zero
+biases, and fresh batch-norm statistics.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -20,6 +25,8 @@ from prifit_torch.models.pointnet2_part_seg_msg import get_model
 from prifit_torch.nn.atlasnet import ChartDense
 from prifit_torch.nn.norm import GroupNorm
 from prifit_torch.nn.pointnet import STN
+from prifit_torch.nn.pointnet2 import SetAbstraction, SetAbstractionMsg, \
+    gfl_weights
 from prifit_torch.train.state import create_train_state
 from prifit_torch.utils.device import resolve_device
 
@@ -35,26 +42,73 @@ SELFSUP_OPTIONS = dict(include_entropy_loss=True, include_intersect_loss=True,
                        include_pruning=True, alpha=0.01)
 
 
+# the standard deviation of a unit normal truncated at +-2: flax's
+# ``variance_scaling(..., "truncated_normal")`` divides by it, so that the
+# truncated draw has the variance 1 / fan_in
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """Fill ``w`` in place as flax's ``lecun_normal()`` draws a kernel: a
+    unit normal truncated at +-2, times ``1 / (sqrt(fan_in) *
+    TRUNC_STD)`` (std ``1/sqrt(fan_in)``, every entry within ``2 /
+    (sqrt(fan_in) * TRUNC_STD)``).  Each entry is one uniform draw from
+    ``generator`` through the inverse normal CDF, so a seed gives the same
+    weights under every torch version (``torch.nn.init.trunc_normal_``
+    changed its sampler between versions)."""
+    lo = 1.0 + math.erf(-2.0 / math.sqrt(2.0))    # 2 Phi(-2)
+    w.uniform_(lo - 1.0, 1.0 - lo, generator=generator)
+    w.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    w.mul_(1.0 / (fan_in ** 0.5 * TRUNC_STD))
+
+
+def grouped_first_layers(model: torch.nn.Module) -> dict:
+    """``{conv: (d_in, xyz_first)}`` of every grouped first layer in
+    ``model``: the first conv of each scale of a ``SetAbstractionMsg``
+    (features first) and of each ``SetAbstraction`` (xyz first), whose
+    weight ``[F, d_in + 3]`` holds the JAX package's ``w_feat`` and
+    ``w_xyz`` (:func:`prifit_torch.nn.pointnet2.gfl_weights`)."""
+    out = {}
+    for mod in model.modules():
+        if isinstance(mod, SetAbstractionMsg):
+            for convs in mod.conv_blocks:
+                out[convs[0]] = (mod.d_in, False)
+        elif isinstance(mod, SetAbstraction):
+            out[mod.mlp_convs[0]] = (mod.d_in, True)
+    return out
+
+
 def init_weights(model: torch.nn.Module, generator: torch.Generator
                  ) -> None:
     """The JAX package's initializers, drawn from ``generator`` on the
-    CPU: lecun-normal weights (std 1/sqrt(fan_in)) and zero biases for
-    every 1x1 conv, ``nn.Linear`` and chart dense; scale 1 and bias 0 for
-    every group norm; and zero for a spatial transformer's last dense,
-    which then outputs the identity."""
+    CPU: every 1x1 conv, ``nn.Linear`` and chart dense weight lecun-normal
+    as flax draws it (:func:`lecun_normal_`: truncated at +-2, std
+    1/sqrt(fan_in), fan_in its input width), with a grouped first layer's
+    xyz columns and feature columns drawn apart, at fan-in 3 and d_in, as
+    the JAX ``GroupedFirstLayer``'s ``w_xyz`` and ``w_feat``; zero
+    biases; scale 1 and bias 0 for every group norm; and zero for a
+    spatial transformer's last dense, which then outputs the identity.
+    A group-all layer's first weight is one draw at fan-in d_in + 3, as
+    the JAX ``PointMLP``'s ``w0`` is."""
+    grouped = grouped_first_layers(model)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv2d,
-                                torch.nn.Linear, ChartDense)):
-                fan_in = mod.in_channels if isinstance(
-                    mod, (torch.nn.Conv1d, torch.nn.Conv2d)) \
-                    else mod.in_features
-                w = torch.randn(mod.weight.shape, generator=generator)
-                mod.weight.copy_(w / fan_in ** 0.5)
-                if mod.bias is not None:
-                    mod.bias.zero_()
+            if mod in grouped:
+                d_in, xyz_first = grouped[mod]
+                w_feat, w_xyz = gfl_weights(mod, d_in, xyz_first)
+                lecun_normal_(w_xyz, 3, generator)
+                if d_in:
+                    lecun_normal_(w_feat, d_in, generator)
+            elif isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv2d)):
+                lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
+            elif isinstance(mod, (torch.nn.Linear, ChartDense)):
+                lecun_normal_(mod.weight, mod.in_features, generator)
             elif isinstance(mod, GroupNorm):
                 mod.weight.fill_(1.0)
+            else:
+                continue
+            if mod.bias is not None:
                 mod.bias.zero_()
         for mod in model.modules():
             if isinstance(mod, STN):

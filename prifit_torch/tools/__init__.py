@@ -1,6 +1,7 @@
-"""The few-shot lift experiment and the real-data parity harness on the
-port: the port's copies of the JAX repository's ``tools/`` scripts of
-the same names, each run as ``python -m prifit_torch.tools.<name>``.
+"""The few-shot lift experiment, the real-data parity harness, the
+ball-query A/B and the bf16 bisection on the port: the port's copies of
+the JAX repository's ``tools/`` scripts of the same names, each run as
+``python -m prifit_torch.tools.<name>``.
 
   - ``synthetic_primitive_dataset``: the primitive-union ShapeNet-Part,
     ACD, lift, ModelNet40 and S3DIS generators (byte-identical files);
@@ -10,7 +11,11 @@ the same names, each run as ``python -m prifit_torch.tools.<name>``.
   - ``probe_embedding``: NMI between an encoder's mean-shift clusters and
     the true parts;
   - ``run_real_parity``: ``check``, ``run`` and ``dryrun`` of the
-    real-data parity procedure.
+    real-data parity procedure;
+  - ``ab_ball_query``: fused (nearest-k) against first-k-by-index ball
+    query, trained on octant labels;
+  - ``run_bf16_bisect``: the per-stage bf16-instability bisection through
+    the port's trainer.
 
 The tools run on CUDA unless ``--device cpu`` is given.
 
