@@ -18,7 +18,13 @@ gaussian step has a Pallas kernel).  Gradients flow to the embeddings through
 every mean-shift step (its backward kernel), the centers and the
 membership; the bandwidth and NMS take none, as in the JAX package.  Each
 of the four stages is a profiler range of its own name (read by
-:mod:`prifit_torch.profile_forward`).
+:mod:`prifit_torch.profile_forward` and the benchmark's
+``cluster_ms`` and ``mean_shift_roofline``), as is the read of the
+overflow flag (``sync.cluster_retry``, read by ``sync_wait_ms`` and
+``sync_idle_ms``).  The counters (:mod:`prifit_torch.utils.profiling`)
+``cluster.shapes``, ``cluster.retry_shapes`` and ``cluster.clusters``
+count the shapes clustered, those run again at the wider bandwidths and
+their clusters (read by ``retry_share`` and ``clusters_per_shape``).
 """
 
 from typing import NamedTuple
@@ -31,6 +37,7 @@ from prifit_torch.kernels.bandwidth import kth_nn_distance
 from prifit_torch.kernels.mean_shift import mean_shift_step
 from prifit_torch.kernels.nms import nms_passes
 from prifit_torch.utils.guard import guard_exp, guard_sqrt
+from prifit_torch.utils.profiling import count, keep
 
 
 class ClusterResult(NamedTuple):
@@ -224,7 +231,7 @@ def cluster_batch(X: torch.Tensor, *, quantile: float = 0.01,
     otherwise).  The first candidate runs for the whole batch; the others
     only for the shapes that overflow.  Finding those shapes reads a flag
     back to the host, so a call synchronizes with the device once when
-    ``num_candidates > 1``.
+    ``num_candidates > 1`` (the host sync ``sync.cluster_retry``).
 
     ``kernel_type`` is the mean-shift kernel, ``"gaussian"`` or
     ``"epanechnikov"`` (see :func:`mean_shift_iterations`).
@@ -238,10 +245,14 @@ def cluster_batch(X: torch.Tensor, *, quantile: float = 0.01,
     bws0 = bandwidth_candidates(Xn, quantile, 1)[:, 0]
     sel = _run_candidate(Xn, bws0, iterations, K, kernel_type)
 
+    count("cluster.shapes", X.shape[0])
     if num_candidates > 1:
         overflow = sel[3] > K
-        if bool(overflow.any()):                    # host sync
-            ids = torch.nonzero(overflow)[:, 0]
+        with record_function("sync.cluster_retry"):
+            ids = torch.nonzero(overflow)[:, 0] \
+                if bool(overflow.any()) else None
+        if ids is not None:
+            count("cluster.retry_shapes", len(ids))
             x_c = Xn[ids]
             bw_rest = bandwidth_candidates(x_c, quantile * 2.0,
                                            num_candidates - 1)
@@ -264,9 +275,11 @@ def cluster_batch(X: torch.Tensor, *, quantile: float = 0.01,
         weights = hard.to(w_kn.dtype) * valid[:, None, :]
     else:
         weights = w_kn.transpose(1, 2)
+    num_clusters = valid.sum(-1)
+    keep("cluster.clusters", num_clusters)
     return ClusterResult(centers=centers, valid=valid, labels=labels,
                          weights=weights, bandwidth=bw,
-                         num_clusters=valid.sum(-1))
+                         num_clusters=num_clusters)
 
 
 def cluster_single(X: torch.Tensor, *, quantile: float = 0.01,

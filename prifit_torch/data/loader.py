@@ -23,18 +23,28 @@ fixed ``chamfer_npoints`` by resampling (see ``_resample``): the
 reference relies on every ``.npy`` having the same resolution and then
 resamples 2048 of the first 5000 on the fly
 (``train_partseg_shapenet.py:441``).
+
+The consumer's wait in :func:`prefetch_to_device`'s ``next()`` is the
+profiler range ``data.wait``; the producer thread's own host seconds, in
+the transform and in the placement, are the counters
+``data.transform_s`` and ``data.place_s``, and the batches it placed
+``data.batches`` (:mod:`prifit_torch.utils.profiling`).  Read by the
+benchmark's ``prefetch_wait_ms`` and ``produce_ms``.
 """
 
 import queue as queue_mod
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from prifit_torch.utils.device import resolve_device
+from prifit_torch.utils.profiling import add_seconds, count
 
 # batches loaded ahead of the consumer beyond one a worker thread, and
 # the depth of the device prefetch queue (double buffering)
@@ -267,9 +277,17 @@ class _PrefetchStream:
             for item in self._iterable:
                 if self._stop.is_set():
                     return
+                t0 = time.perf_counter()
                 if self._transform is not None:
                     item = self._transform(item)
-                if not self._enqueue(self._put_fn(item)):
+                t1 = time.perf_counter()
+                placed = self._put_fn(item)
+                # counted together, so that each batch counted brings
+                # both of its times
+                add_seconds("data.transform_s", t1 - t0)
+                add_seconds("data.place_s", time.perf_counter() - t1)
+                count("data.batches")
+                if not self._enqueue(placed):
                     return
         except BaseException as e:   # surface worker errors to consumer
             self._enqueue((_STOP, e))
@@ -280,28 +298,29 @@ class _PrefetchStream:
         return self
 
     def __next__(self):
-        if self._done:
-            # terminal latch: the producer has exited, so blocking on the
-            # (empty) queue again would hang forever
-            raise StopIteration
-        item = self._q.get()
-        if isinstance(item, tuple) and len(item) == 2 \
-                and item[0] is _STOP:
-            self._done = True
-            self._stop.set()
-            if item[1] is not None:
-                raise item[1]
-            raise StopIteration
-        if isinstance(item, _OnDevice):
-            # the consumer's stream waits for the copies, and the caching
-            # allocator keeps the side stream's buffers until the work the
-            # consumer queues after this point is done
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(item.event)
-            for t in item.tensors():
-                t.record_stream(stream)
-            return item.batch
-        return item
+        with record_function("data.wait"):
+            if self._done:
+                # terminal latch: the producer has exited, so blocking on the
+                # (empty) queue again would hang forever
+                raise StopIteration
+            item = self._q.get()
+            if isinstance(item, tuple) and len(item) == 2 \
+                    and item[0] is _STOP:
+                self._done = True
+                self._stop.set()
+                if item[1] is not None:
+                    raise item[1]
+                raise StopIteration
+            if isinstance(item, _OnDevice):
+                # the consumer's stream waits for the copies, and the caching
+                # allocator keeps the side stream's buffers until the work the
+                # consumer queues after this point is done
+                stream = torch.cuda.current_stream(self._device)
+                stream.wait_event(item.event)
+                for t in item.tensors():
+                    t.record_stream(stream)
+                return item.batch
+            return item
 
     def close(self):
         self._stop.set()

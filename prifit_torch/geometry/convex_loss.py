@@ -67,7 +67,8 @@ def convex_loss(points: torch.Tensor, chamfer_points: torch.Tensor,
                             1e-12)
     zero = torch.zeros((), dtype=torch.float32, device=X.device)
 
-    # each stage is a profiler range (read by prifit_torch.profile_forward)
+    # each stage is a profiler range (read by prifit_torch.profile_forward
+    # and by the benchmark's cluster_ms and fit_chamfer_ms)
     ent = zero
     if include_entropy_loss:
         with record_function("entropy_loss"):

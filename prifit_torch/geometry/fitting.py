@@ -6,11 +6,17 @@ the guarded backward, condition-number and minimum-weight validity,
 reflection fix, and axis lengths from the weight-scaled points in the
 eigenbasis.  Invalid slots get unit radii, identity axes and a zero
 center.
+
+The eigendecomposition reads the solver's error flags back to the host,
+so it synchronizes with the device: it is the profiler range
+``sync.eigh`` (read by the benchmark's ``sync_wait_ms`` and
+``sync_idle_ms``).
 """
 
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 GAP_EPS = 1e-6     # reference's eigen-gap guard
 COND_MAX = 1e5     # reference's condition-number cutoff
@@ -34,7 +40,8 @@ class Eigh3Guarded(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, A):
-        w, v = torch.linalg.eigh(A)
+        with record_function("sync.eigh"):
+            w, v = torch.linalg.eigh(A)
         s, V = w.flip(-1), v.flip(-1)
         ctx.save_for_backward(s, V)
         return s, V

@@ -161,15 +161,17 @@ def region_keys(stages, training: bool, n: int, generator, sr_key):
     forward call order, ``fold_in(base, i)``, or ``n`` Nones when no stage
     of ``stages`` trains in ``MXSR``.  The base key of two uint32 words
     is ``sr_key``, else drawn from ``generator`` (the step's one read of
-    it to the host)."""
+    it to the host, the host sync ``sync.sr_key``)."""
     if not (training and any(s.dtype == MXSR for s in stages)):
         return [None] * n
     if sr_key is None:
         if generator is None:
             raise ValueError("training in mxsr needs a generator or an "
                              "sr_key for its stochastic rounding")
-        sr_key = torch.randint(0, 2 ** 32, (2,), generator=generator,
-                               device=generator.device).tolist()
+        drawn = torch.randint(0, 2 ** 32, (2,), generator=generator,
+                              device=generator.device)
+        with record_function("sync.sr_key"):
+            sr_key = drawn.tolist()
     return [fold_in(sr_key, i) for i in range(n)]
 
 

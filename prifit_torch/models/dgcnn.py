@@ -13,11 +13,13 @@ no ``selfsup_state`` and passes no ``beta``, so unlike the MSG model's it
 never decays.  The convex loss takes its draws (entropy subsample,
 jitter) from ``generator`` in training only; an eval forward takes its
 deterministic fallbacks.  The encoder has no batch norm, so
-``bn_momentum`` is taken and unused.
+``bn_momentum`` is taken and unused.  The encoder's call is the profiler
+range ``encoder.dgcnn`` (read by the benchmark's ``encoder_fwd_ms``).
 """
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from prifit_torch.geometry.convex_loss import convex_loss
 from prifit_torch.models.common import (
@@ -58,7 +60,8 @@ class get_model(nn.Module):
                 entropy_sub=None, jitter=None) -> SegOutput:
         """``xyz [B, N, 3(+3)]``; ``cls_label`` is taken for the models'
         common call and unused, as are ``bn_momentum`` and ``sr_key``."""
-        embedding, seg = self.dgcnn(xyz)
+        with record_function("encoder.dgcnn"):
+            embedding, seg = self.dgcnn(xyz)
         zero = torch.zeros((), dtype=torch.float32, device=xyz.device)
         total_loss, chamfer, convex_out = zero, zero, None
         if include_convex_loss:

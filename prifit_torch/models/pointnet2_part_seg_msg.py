@@ -37,10 +37,15 @@ and gives the nine encoder regions ``fold_in(base, i)`` in forward call
 order: sa1's scales 0-2, sa2's scales 0-1, sa3, fp3, fp2, fp1.  The JAX
 package draws a fresh ``make_rng("sampling")`` per region instead, which
 torch cannot reproduce.
+
+Each encoder stage's call is a profiler range, ``encoder.sa1`` ..
+``encoder.fp1`` (read by :mod:`prifit_torch.profile_forward` and the
+benchmark's ``encoder_fwd_ms``).
 """
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from prifit_torch.geometry.convex_loss import convex_loss
 from prifit_torch.models.common import (
@@ -209,26 +214,33 @@ class get_model(nn.Module):
         l0_points = xyz
         l0_xyz = xyz[..., :3]
 
-        l1_xyz, l1_points = self.sa1(l0_xyz, l0_points, bn_momentum,
-                                     generator, keys[0:3])
+        with record_function("encoder.sa1"):
+            l1_xyz, l1_points = self.sa1(l0_xyz, l0_points, bn_momentum,
+                                         generator, keys[0:3])
         l1_points = maybe_quant(l1_points, q["sa1"])
-        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, bn_momentum,
-                                     generator, keys[3:5])
+        with record_function("encoder.sa2"):
+            l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, bn_momentum,
+                                         generator, keys[3:5])
         l2_points = maybe_quant(l2_points, q["sa2"])
-        l3_xyz, l3_points = self.sa3(l2_xyz, l2_points, bn_momentum, keys[5])
+        with record_function("encoder.sa3"):
+            l3_xyz, l3_points = self.sa3(l2_xyz, l2_points, bn_momentum,
+                                         keys[5])
         l3_points = maybe_quant(l3_points, q["sa3"])
 
-        l2_points = maybe_quant(self.fp3(l2_xyz, l3_xyz, l2_points,
-                                         l3_points, bn_momentum, keys[6]),
-                                q["fp3"])
-        l1_points = maybe_quant(self.fp2(l1_xyz, l2_xyz, l1_points,
-                                         l2_points, bn_momentum, keys[7]),
-                                q["fp2"])
+        with record_function("encoder.fp3"):
+            l2_points = self.fp3(l2_xyz, l3_xyz, l2_points, l3_points,
+                                 bn_momentum, keys[6])
+        l2_points = maybe_quant(l2_points, q["fp3"])
+        with record_function("encoder.fp2"):
+            l1_points = self.fp2(l1_xyz, l2_xyz, l1_points, l2_points,
+                                 bn_momentum, keys[7])
+        l1_points = maybe_quant(l1_points, q["fp2"])
         cls_onehot = cls_label[:, None, :].expand(B, N, cls_label.shape[-1])
         skip = torch.cat([cls_onehot.float(), l0_xyz.float(),
                           l0_points.float()], dim=-1)
-        fp1_out = l0_points = self.fp1(l0_xyz, l1_xyz, skip, l1_points,
-                                       bn_momentum, keys[8])
+        with record_function("encoder.fp1"):
+            fp1_out = l0_points = self.fp1(l0_xyz, l1_xyz, skip, l1_points,
+                                           bn_momentum, keys[8])
         if self.extra_layers:
             fp1_out = fp1_out.float()
             l0_points = self._fp1_denses(fp1_out, self.fp1_conv1,

@@ -40,6 +40,7 @@ rank times its element count (the shards are equal and contiguous).
 """
 
 import torch
+from torch.profiler import record_function
 
 from prifit_torch.kernels import max_bwd
 from prifit_torch.kernels.stochastic_round import hash_bits16, sr_bf16
@@ -307,44 +308,47 @@ class _MxChain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, *_stats_grads):
-        has_pre_bn, has_max, sr, exit_low, _ = ctx.cfg
-        key, shard = ctx.key, ctx.shard
-        (residuals, max_res, shape) = ctx.res
-        del ctx.res
-        layers = residuals[1 if has_pre_bn else 0:]
-        max_ctx, g = None, None
-        if has_max:
-            out_bf, zsel = max_res
-            max_ctx = (g_out.reshape(out_bf.shape).contiguous(), out_bf,
-                       zsel)
-        else:
-            g = g_out.reshape(-1, g_out.shape[-1]).float().contiguous()
-            if sr:
-                g = _sr(fold_in(key, 255), g, shard)
-        d_chain = []
-        for j, res in enumerate(reversed(layers)):
-            at_exit = j == len(layers) - 1 and not has_pre_bn
-            g, grads = _layer_bwd(
-                res, g, sr_key=fold_in(key, j) if sr else None,
-                sr_out=not at_exit or exit_low,
-                max_ctx=max_ctx if j == 0 else None, shard=shard)
-            d_chain.append(grads)
-        d_chain.reverse()
-        d_pre_bn = ()
-        if has_pre_bn:
-            if has_max and not layers:
-                # max right over the pre-BN output: dz is dx, already final
-                g, (dscale, dbias) = _max_bwd_core(
-                    residuals[0], *max_ctx,
-                    sr_key=fold_in(key, 254) if sr else None, shard=shard)
+        # the encoder regions' backward on the profiler's timeline
+        # (read by the benchmark's bwd_regions_ms)
+        with record_function("bwd.regions"):
+            has_pre_bn, has_max, sr, exit_low, _ = ctx.cfg
+            key, shard = ctx.key, ctx.shard
+            (residuals, max_res, shape) = ctx.res
+            del ctx.res
+            layers = residuals[1 if has_pre_bn else 0:]
+            max_ctx, g = None, None
+            if has_max:
+                out_bf, zsel = max_res
+                max_ctx = (g_out.reshape(out_bf.shape).contiguous(), out_bf,
+                           zsel)
             else:
-                g, (dscale, dbias) = _prebn_bwd(residuals[0], g, shard)
-            if sr and exit_low and g.dtype != MXDT:
-                g = _sr(fold_in(key, 254), g, shard)
-            d_pre_bn = (dscale, dbias)
-        dpre = g.to(MXDT if exit_low else torch.float32).reshape(shape)
-        return (None, None, None, dpre, *d_pre_bn,
-                *(t for grads in d_chain for t in grads))
+                g = g_out.reshape(-1, g_out.shape[-1]).float().contiguous()
+                if sr:
+                    g = _sr(fold_in(key, 255), g, shard)
+            d_chain = []
+            for j, res in enumerate(reversed(layers)):
+                at_exit = j == len(layers) - 1 and not has_pre_bn
+                g, grads = _layer_bwd(
+                    res, g, sr_key=fold_in(key, j) if sr else None,
+                    sr_out=not at_exit or exit_low,
+                    max_ctx=max_ctx if j == 0 else None, shard=shard)
+                d_chain.append(grads)
+            d_chain.reverse()
+            d_pre_bn = ()
+            if has_pre_bn:
+                if has_max and not layers:
+                    # max right over the pre-BN output: dz is dx, already final
+                    g, (dscale, dbias) = _max_bwd_core(
+                        residuals[0], *max_ctx,
+                        sr_key=fold_in(key, 254) if sr else None, shard=shard)
+                else:
+                    g, (dscale, dbias) = _prebn_bwd(residuals[0], g, shard)
+                if sr and exit_low and g.dtype != MXDT:
+                    g = _sr(fold_in(key, 254), g, shard)
+                d_pre_bn = (dscale, dbias)
+            dpre = g.to(MXDT if exit_low else torch.float32).reshape(shape)
+            return (None, None, None, dpre, *d_pre_bn,
+                    *(t for grads in d_chain for t in grads))
 
 
 def mx_chain(cfg, pre, params, key=None, storage=MXDT, group=None):

@@ -10,12 +10,13 @@ power limit, then for one eval forward (``entry.flagship``, default dtype):
   1. per stage, its span on the device (from its first kernel's start to
      its last kernel's end: the device-side mirror of its profiler range),
      the device time of the kernels that start within that span, and the
-     stage's host time.  The encoder stages are the model's submodules
-     (sa1..fp1), given profiler ranges by forward hooks; the clustering,
-     geometry and contrastive-loss stages are the ``record_function``
-     ranges in ``clustering/mean_shift.py``, ``geometry/convex_loss.py``
-     and ``models/common.py``.  A stage that the run should show and
-     does not appear on both sides of the profile raises.
+     stage's host time.  The stages are the program's own
+     ``record_function`` ranges: the encoder stages ``encoder.sa1`` ..
+     ``encoder.fp1`` in ``models/pointnet2_part_seg_msg.py``, the
+     clustering, geometry and contrastive-loss stages in
+     ``clustering/mean_shift.py``, ``geometry/convex_loss.py`` and
+     ``models/common.py``.  A stage that the run should show and does
+     not appear on both sides of the profile raises.
      (The kernels launched through ``ctypes`` are not linked to the CPU
      range around them, so a range's own device total leaves them out;
      its device-side mirror does not.)
@@ -29,10 +30,12 @@ settings, the same with every option of the convex loss (entropy,
 intersection, pruning; ``alpha`` 0.01) for ellipsoids and for cuboids,
 and the contrastive step.  For each, the stage table of its forward (the
 ``train_forward`` range of ``train/steps.py``), the busy and idle share,
-and its backward by kernel: the device kernels that start after the
-forward's device span ends and before the optimizer's
-(``optimizer_step``) begins.  The backward runs on autograd's own
-thread, so a range around it would have no device-side mirror.
+its backward's stages (the ranges of the hand-written backwards, which
+run on autograd's own thread: ``bwd.regions``, the encoder regions of
+``nn/mixed.py``, and ``bwd.mean_shift``, the mean-shift step of
+``kernels/mean_shift.py``), and its backward by kernel: the device
+kernels that start after the forward's device span ends and before the
+optimizer's (``optimizer_step``) begins.
 
 Needs a CUDA device.
 """
@@ -42,11 +45,12 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from prifit_torch import entry
 
-ENCODER_STAGES = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
+ENCODER_STAGES = tuple(f"encoder.{s}" for s in ("sa1", "sa2", "sa3", "fp3",
+                                                "fp2", "fp1"))
 # the ranges of convex_loss in order, each with the ranges nested in it
 CONVEX_STAGES = {
     "entropy_loss": (),
@@ -68,54 +72,38 @@ STAGES = ENCODER_STAGES + CONVEX + CONTRASTIVE
 DEFAULT_STAGES = ENCODER_STAGES + tuple(s for s in CONVEX
                                         if s not in OPTION_STAGES)
 STEP_RANGES = ("train_forward", "optimizer_step")
+# the hand-written backwards' ranges
+BACKWARD_STAGES = ("bwd.regions", "bwd.mean_shift")
+# the prefix of the host syncs' ranges, whose device mirrors are no
+# kernels either
+SYNC = "sync."
 # the profiled train steps: (name, kind, convex-loss arguments beyond the
-# bench settings, the stages its forward must show)
+# bench settings, the stages its forward must show, the stages its
+# backward must show)
 STEPS = (
-    ("self-sup", "selfsup", {}, DEFAULT_STAGES),
+    ("self-sup", "selfsup", {}, DEFAULT_STAGES, BACKWARD_STAGES),
     ("self-sup with every option", "selfsup", entry.SELFSUP_OPTIONS,
-     ENCODER_STAGES + CONVEX),
+     ENCODER_STAGES + CONVEX, BACKWARD_STAGES),
     ("self-sup with every option, cuboids", "selfsup",
-     dict(entry.SELFSUP_OPTIONS, if_cuboid=True), ENCODER_STAGES + CONVEX),
-    ("contrastive", "contrastive", None, ENCODER_STAGES + CONTRASTIVE),
+     dict(entry.SELFSUP_OPTIONS, if_cuboid=True), ENCODER_STAGES + CONVEX,
+     BACKWARD_STAGES),
+    ("contrastive", "contrastive", None, ENCODER_STAGES + CONTRASTIVE,
+     ("bwd.regions",)),
 )
-RANGES = STAGES + STEP_RANGES
+RANGES = STAGES + STEP_RANGES + BACKWARD_STAGES
 TOP_KERNELS = 25
 
 
-def _encoder_ranges(model):
-    """Forward hooks that open a profiler range around each encoder
-    stage; returns their handles."""
-    hooks = []
-    for name in ENCODER_STAGES:
-        rng = record_function(name)
-
-        def pre(_m, _a, rng=rng):
-            rng.__enter__()
-
-        def post(_m, _a, _o, rng=rng):
-            rng.__exit__(None, None, None)
-
-        sub = getattr(model, name)
-        hooks += [sub.register_forward_pre_hook(pre),
-                  sub.register_forward_hook(post)]
-    return hooks
-
-
-def _profile(model, run):
-    """``run()`` once under the profiler with the encoder ranges hooked
-    in: ``(wall_s, events, key_averages)``."""
-    hooks = _encoder_ranges(model)
-    try:
+def _profile(run):
+    """``run()`` once under the profiler: ``(wall_s, events,
+    key_averages)``."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for h in hooks:
-            h.remove()
+        wall = time.perf_counter() - t0
     return wall, prof.events(), prof.key_averages()
 
 
@@ -134,10 +122,15 @@ def _ranges(events, names):
     return host, spans
 
 
+def _mirror(name: str) -> bool:
+    """Whether a device-side event named ``name`` is a range's mirror."""
+    return name in RANGES or name.startswith(SYNC)
+
+
 def _device_kernels(events):
     """Device-side kernels and copies, without the ranges' mirrors."""
     return [e for e in events if e.device_type == DeviceType.CUDA
-            and e.name not in RANGES]
+            and not _mirror(e.name)]
 
 
 def _stage_times(events, names):
@@ -163,7 +156,7 @@ def _by_kernel(averages):
                    for e in averages
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0
-                   and e.key not in RANGES), key=lambda r: -r[1])
+                   and not _mirror(e.key)), key=lambda r: -r[1])
 
 
 def profile_forward(model, points, cls):
@@ -171,17 +164,18 @@ def profile_forward(model, points, cls):
     ``stages`` maps each stage to its (device span us, device busy us,
     host us) and ``kernels`` lists (name, device us, count), the largest
     first."""
-    wall, events, averages = _profile(model, lambda: entry.eval_forward(
+    wall, events, averages = _profile(lambda: entry.eval_forward(
         model, points, cls, **entry.BENCH_KWARGS))
     return wall, _stage_times(events, DEFAULT_STAGES), _by_kernel(averages)
 
 
-def profile_step(state, run, stages):
+def profile_step(run, stages, backward_stages):
     """Profiles one train step ``run()`` whose forward shows the ranges
-    ``stages``: ``(wall_s, stages, kernels, backward, optimizer_us)``;
+    ``stages`` and whose backward shows ``backward_stages``: ``(wall_s,
+    stages, backward_stages, kernels, backward, optimizer_us)``;
     ``backward`` lists the (name, device us, count) of the kernels between
     the forward's and the optimizer's device spans, the largest first."""
-    wall, events, averages = _profile(state.model, run)
+    wall, events, averages = _profile(run)
     _, spans = _ranges(events, ("train_forward", "optimizer_step"))
     fwd_end = max(b for _, b in spans["train_forward"])
     opt_start = min(a for a, _ in spans["optimizer_step"])
@@ -193,7 +187,8 @@ def profile_step(state, run, stages):
     backward = sorted(((name, us, n) for name, (us, n) in backward.items()),
                       key=lambda r: -r[1])
     opt_us = sum(b - a for a, b in spans["optimizer_step"])
-    return (wall, _stage_times(events, stages), _by_kernel(averages),
+    return (wall, _stage_times(events, stages),
+            _stage_times(events, backward_stages), _by_kernel(averages),
             backward, opt_us)
 
 
@@ -212,6 +207,18 @@ def _print_stages(stages, busy_ms):
     outside = busy_ms - sum(stages[s][1] for s in tops
                             if s in stages) / 1e3
     print(f"  {'busy outside the stages':28s} {outside:19.3f}")
+
+
+def _print_backward_stages(stages, busy_ms):
+    print("backward stage: device span ms, device busy ms (kernels in the "
+          "span), host ms")
+    for name in BACKWARD_STAGES:
+        if name in stages:
+            span, dev, host = stages[name]
+            print(f"  {name:28s} {span / 1e3:9.3f} {dev / 1e3:9.3f} "
+                  f"{host / 1e3:9.3f}")
+    outside = busy_ms - sum(dev for _, dev, _ in stages.values()) / 1e3
+    print(f"  {'busy outside them':28s} {outside:19.3f}")
 
 
 def _print_kernels(title, kernels):
@@ -248,7 +255,7 @@ def main():
     from prifit_torch.train.steps import make_contrastive_step, \
         make_selfsup_step
     ts = entry.TRAIN_SETTINGS
-    for title, kind, options, names in STEPS:
+    for title, kind, options, names, bwd_names in STEPS:
         state, points, cls, _ = entry.train_flagship(B, N)
         gen = torch.Generator(device="cuda").manual_seed(0)
         if kind == "selfsup":
@@ -264,8 +271,8 @@ def main():
 
         run()
         torch.cuda.synchronize()
-        wall, stages, kernels, backward, opt_us = profile_step(state, run,
-                                                               names)
+        wall, stages, bwd_stages, kernels, backward, opt_us = \
+            profile_step(run, names, bwd_names)
         busy = sum(r[1] for r in kernels) / 1e3
         bwd = sum(r[1] for r in backward) / 1e3
         print(f"== {title} train step (default encoder dtype, mxsr), "
@@ -275,6 +282,7 @@ def main():
               f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
               f"{100 - 100 * busy / (wall * 1e3):.1f}%; backward kernels "
               f"{bwd:.3f} ms busy; optimizer span {opt_us / 1e3:.3f} ms")
+        _print_backward_stages(bwd_stages, bwd)
         _print_kernels("backward device ms by kernel, top:", backward)
         _print_kernels("step device ms by kernel (self), top:", kernels)
         del state, step, run

@@ -20,8 +20,8 @@ it to the host, once per step (the model's forward does, see
 :mod:`prifit_torch.models.pointnet2_part_seg_msg`); ``sr_key`` gives that
 key instead, for runs that must draw the same bits.  The
 forward and the update are profiler ranges of their own names (read by
-:mod:`prifit_torch.profile_forward`, which finds the backward's kernels
-between them).
+:mod:`prifit_torch.profile_forward` and the benchmark's ``backward_ms``,
+which find the backward's kernels between them, and ``optimizer_ms``).
 
 Data parallelism (the data axis's process group, as the JAX steps run
 on a batch-sharded mesh): the model holds the group, given it once after

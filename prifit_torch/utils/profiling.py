@@ -10,14 +10,25 @@ Port of ``prifit_tpu/utils/profiling.py``:
     for);
   - :func:`debug_nans`: ``torch.autograd`` anomaly detection with its NaN
     check, which raises where a backward function returns NaN (the JAX
-    package's ``jax_debug_nans`` also checks forward values).
+    package's ``jax_debug_nans`` also checks forward values);
+  - the program's counters (:func:`count`, :func:`add_seconds`,
+    :func:`keep`, read by :func:`counters`).
+
+The counters record only while a ``torch.profiler`` session records, on
+every thread: they test the profiler's process-wide flag, since its
+per-thread state reads off on a thread started before the session (a
+data loader's producer).  Outside a session a call is that one test.
+The first call that records after a call that saw no session clears
+them, so that they hold one session's work, readable after it ends.
 """
 
 import contextlib
+import threading
 import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._pytree import tree_leaves
 
 
@@ -90,3 +101,66 @@ class StepTimer:
             return {}
         return {"mean_s": float(t.mean()), "p50_s": float(np.median(t)),
                 "p95_s": float(np.percentile(t, 95)), "n": int(t.size)}
+
+
+_lock = threading.Lock()
+_counts: dict = {}
+_kept: dict = {}
+_stale = True
+
+
+def recording() -> bool:
+    """Whether a profiler session records, on any thread."""
+    global _stale
+    if not _autograd_profiler._is_profiler_enabled:
+        if not _stale:
+            # marked under the lock after reading the flag again, so that
+            # a thread that saw no session cannot mark one that has
+            # started since (and has cleared the counters) as stale
+            with _lock:
+                if not _autograd_profiler._is_profiler_enabled:
+                    _stale = True
+        return False
+    if _stale:
+        with _lock:
+            if _stale and _autograd_profiler._is_profiler_enabled:
+                _counts.clear()
+                _kept.clear()
+                _stale = False
+    return True
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    if not recording():
+        return
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def add_seconds(name: str, s: float) -> None:
+    """Add ``s`` host seconds to the counter ``name``."""
+    count(name, s)
+
+
+def keep(name: str, tensor: torch.Tensor) -> None:
+    """Add the sum of ``tensor`` (a small device tensor, held by
+    reference) to the counter ``name`` when the counters are read, so
+    that counting never waits for the device."""
+    if not recording():
+        return
+    with _lock:
+        _kept.setdefault(name, []).append(tensor.detach())
+
+
+def counters() -> dict:
+    """The counters of the last session, ``{name: number}``, each kept
+    counter summed (which waits for the device).  Read outside a
+    session, like any call, it lets the next session start from zero."""
+    recording()
+    with _lock:
+        out = dict(_counts)
+        kept = {k: list(v) for k, v in _kept.items()}
+    for name, ts in kept.items():
+        out[name] = sum(t.sum().item() for t in ts)
+    return out
