@@ -18,8 +18,10 @@ evaluated in float64, and for a zero cotangent) and NMS (on duplicated
 anchors, converged modes, distinct rows and a bandwidth below every
 self-distance); the K-max backward pair
 (``max_bwd_cnt_gsm``, ``max_bwd_dz``) at the six K-max regions' shapes
-with stochastic rounding on and off, bit for bit; and the ``sr_bf16``
-cast at the sizes one ``mxsr`` step casts, bit for bit.  It holds the
+with stochastic rounding on and off, bit for bit; the ``sr_bf16``
+cast at the sizes one ``mxsr`` step casts, bit for bit; and the eval
+epilogue ``bn_relu_eval`` at the 24 calls of the MSG eval forward and on
+NaN and -0.0 inputs, bit for bit.  It holds the
 four clustering kernels at other shapes too (B=4 at N=2500 with widths 8,
 13 and 128, and N=50 with width 128; bandwidth at N=8192), each against
 its plain version with the same limits.  It drives the
@@ -877,6 +879,10 @@ KEY_255, KEY_0 = (0x1234ABCD, 0x9E3779B9), (0xCAFEBABE, 12345)
 # at the mixed-precision dtypes
 MIXED_ONLY = ("max_bwd_cnt_gsm", "max_bwd_dz", "sr_bf16")
 TRAIN_ONLY = ("mean_shift_bwd",) + MIXED_ONLY
+# launched by eval forwards alone: the eval epilogue, once a layer of the
+# MSG encoder (24 an eval forward)
+EVAL_ONLY = ("bn_relu_eval",)
+BN_EVAL_CALLS = 24
 
 
 def _bits(t):
@@ -1031,6 +1037,126 @@ def check_sr_bf16(numels):
                 bound=bound_ms(byt, 12 * sum(numels)))
 
 
+class record_bn_eval_calls:
+    """While active, keeps the arguments of every eval-epilogue call the
+    encoder makes (``nn/pointnet2.py`` calls ``bn_relu_eval`` by that
+    module's name): ``(z, mean, var, eps, weight, bias, dense_bias,
+    storage, kmax)``."""
+
+    def __enter__(self):
+        import prifit_torch.nn.pointnet2 as p2
+        self.p2, self.orig, self.calls = p2, p2.bn_relu_eval, []
+
+        def bn_relu_eval(*args):
+            self.calls.append(args)
+            return self.orig(*args)
+
+        p2.bn_relu_eval = bn_relu_eval
+        return self
+
+    def __exit__(self, *exc):
+        self.p2.bn_relu_eval = self.orig
+
+
+def _bn_eval_plain(args):
+    from prifit_torch.kernels.bn_eval import bn_relu_eval_plain
+    z, mean, var, eps, weight, bias, dense_bias, storage, kmax = args
+    return bn_relu_eval_plain(z, mean, torch.rsqrt(var + eps), weight, bias,
+                              dense_bias, storage, kmax)
+
+
+def _bn_eval_odd_inputs(gen):
+    """Calls on NaN and -0.0 inputs, with a zero BN weight and a -0.0 BN
+    bias on the first 8 features (so that zeros of both signs reach the
+    relu), in bf16 and f32 storage and from an f32 input rounded to bf16,
+    with and without the K-max."""
+    out = []
+    F = 64
+    mean = torch.randn(F, generator=gen, device="cuda") * 0.3
+    var = torch.rand(F, generator=gen, device="cuda") + 0.1
+    weight = torch.randn(F, generator=gen, device="cuda")
+    bias = torch.randn(F, generator=gen, device="cuda")
+    weight[:8], bias[:8] = 0.0, -0.0
+    dense_bias = torch.randn(F, generator=gen, device="cuda")
+    z = torch.randn((4, 33, F), generator=gen, device="cuda")
+    z[0, 3, 5] = z[1, 7, 40] = float("nan")
+    z[2, :, 10:20] = -0.0
+    z[3, 5, :] = -0.0
+    for src, storage in ((torch.bfloat16, None), (torch.float32, None),
+                         (torch.float32, torch.bfloat16)):
+        for db in (dense_bias, None):
+            for kmax in (False, True):
+                out.append((z.to(src), mean, var, 1e-5, weight, bias, db,
+                            storage, kmax))
+    return out
+
+
+def check_bn_eval(entry):
+    """The eval epilogue kernel (``bn_relu_eval``) against its plain
+    version, bit for bit, at the 24 calls of the MSG eval forward at B=24,
+    N=2048 (recorded from the flagship's forward with no gradient
+    recorded; 6 with the K-max) and at the odd inputs of
+    :func:`_bn_eval_odd_inputs`; times the forward's 24 calls together and
+    each alone.  No single PyTorch call computes the function."""
+    from prifit_torch.kernels import bn_eval as be
+    model, points, cls = entry.flagship(B, N)
+    with record_bn_eval_calls() as rec, torch.no_grad():
+        model(points, cls)
+    calls = rec.calls
+    del model
+    if len(calls) != BN_EVAL_CALLS or sum(bool(a[8]) for a in calls) != 6:
+        raise AssertionError(f"the eval forward made {len(calls)} epilogue "
+                             f"calls, {sum(bool(a[8]) for a in calls)} with "
+                             f"the K-max, not 24 and 6")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    relu_zero = 0xFFFF & int(_bits(torch.relu(torch.tensor(
+        [-0.0], dtype=torch.bfloat16, device="cuda")))[0])
+    outs = []
+    for i, args in enumerate(calls + _bn_eval_odd_inputs(gen)):
+        got, want = be.bn_relu_eval(*args), _bn_eval_plain(args)
+        if not (got.dtype == want.dtype and torch.equal(_bits(got),
+                                                        _bits(want))):
+            diff = int((_bits(got) != _bits(want)).sum()) \
+                if got.shape == want.shape else "shape"
+            raise AssertionError(
+                f"bn_relu_eval differs from its plain version at call {i}: "
+                f"z {tuple(args[0].shape)} {args[0].dtype}, storage "
+                f"{args[7]}, dense bias {args[6] is not None}, kmax "
+                f"{args[8]}: {diff} of {want.numel()} elements (relu(-0.0) "
+                f"reads {relu_zero:#06x})")
+        if i < len(calls):
+            outs.append(got)
+    ms = cuda_ms(lambda: [be.bn_relu_eval(*a) for a in calls])
+    plain_ms = cuda_ms(lambda: [_bn_eval_plain(a) for a in calls], reps=3)
+    # each call alone: CUDA events (at the small calls, the host's launch
+    # time), and the kernel's device time from the profiler, the mean of
+    # the launches it kept (one a call; a session may drop some)
+    per_call = [cuda_ms(lambda a=a: be.bn_relu_eval(*a)) for a in calls]
+    device = []
+    for a in calls:
+        us = [t for name, t in device_kernels(
+            lambda a=a: be.bn_relu_eval(*a), reps=5)
+            if "rows_kernel" in name or "max_kernel" in name]
+        if not us:
+            raise AssertionError("the profiler saw no bn_relu_eval kernel")
+        device.append(sum(us) / len(us) / 1e3)
+    # each input element read once at its dtype, each output written once,
+    # and the parameters; 6-7 flops an element
+    byt = sum(nbytes(a[0], o, *(t for t in (a[1], a[2], a[4], a[5], a[6])
+                                if t is not None))
+              for a, o in zip(calls, outs))
+    ops = sum(7 * a[0].numel() for a in calls)
+    shapes = [dict(z=list(a[0].shape), z_dtype=str(a[0].dtype),
+                   storage=str(o.dtype), dense_bias=a[6] is not None,
+                   kmax=bool(a[8]), ms=t, device_ms=d,
+                   bound_ms=bound_ms(nbytes(a[0], o), 0)[0])
+              for a, o, t, d in zip(calls, outs, per_call, device)]
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound=bound_ms(byt, ops), device_ms=sum(device),
+                per_call_ms=shapes,
+                relu_of_negative_zero=f"{relu_zero:#06x}")
+
+
 def main_path(entry, kernels):
     """The flagship eval forward with fit at B=24, N=2048: one warm-up
     forward, then three with the launch counts reset just before."""
@@ -1067,6 +1193,10 @@ def main_path(entry, kernels):
     if counts["fps"] != 2 * 3:
         raise AssertionError(f"fps launched {counts['fps']} times in 3 "
                              f"forwards, not once per SA-MSG layer")
+    if counts["bn_relu_eval"] != BN_EVAL_CALLS * 3:
+        raise AssertionError(f"bn_relu_eval launched "
+                             f"{counts['bn_relu_eval']} times in 3 forwards, "
+                             f"not once per BN layer")
     return counts, times, out
 
 
@@ -1092,6 +1222,9 @@ def check_encoder_counts(c, mixed, what):
     if c["fps"] != 2 * 3:
         raise AssertionError(f"fps launched {c['fps']} times in 3 {what} "
                              f"steps, not once per SA-MSG layer")
+    if c["bn_relu_eval"]:
+        raise AssertionError(f"the eval epilogue launched "
+                             f"{c['bn_relu_eval']} times in 3 {what} steps")
     want = 18 if mixed else 0
     if not (c["max_bwd_cnt_gsm"] == c["max_bwd_dz"] == want):
         raise AssertionError(f"K-max backward launched {c} in 3 {what} "
@@ -1105,8 +1238,8 @@ def check_selfsup_counts(c, mixed, what):
     """A self-sup step's launches ``c`` in 3 steps: every kernel (but
     the mixed-precision ones with f32), and the mean-shift backward once
     per forward step."""
-    missing = [k for k, v in c.items()
-               if v == 0 and (mixed or k not in MIXED_ONLY)]
+    missing = [k for k, v in c.items() if v == 0 and k not in EVAL_ONLY
+               and (mixed or k not in MIXED_ONLY)]
     if missing:
         raise AssertionError(f"kernels never launched by the {what} step: "
                              f"{missing}")
@@ -1627,7 +1760,8 @@ def expected_step_counts(r, backward=True):
          "nms": 3 * r, "mean_shift_bwd": 10 * r if backward else 0,
          "max_bwd_cnt_gsm": 6 if backward else 0,
          "max_bwd_dz": 6 if backward else 0,
-         "sr_bf16": 40 if backward else 0}
+         "sr_bf16": 40 if backward else 0,
+         "bn_relu_eval": 0 if backward else BN_EVAL_CALLS}
     return c
 
 
@@ -1810,6 +1944,7 @@ def pretrainer_phase(kernels, bare):
             _, vwalls, vcounts, vlast, _ = _trainer_run(
                 train_partseg, vargs, kernels)
             missing = [k for k, v in vlast.items() if v == 0
+                       and k not in EVAL_ONLY
                        and not (name == "extra_layers" and k == "sr_bf16")]
             if missing or vlast["fps"] != 4 \
                     or vlast["mean_shift_bwd"] != vlast["mean_shift"]:
@@ -3132,7 +3267,7 @@ def check_dtype_counts(c, kmax, what):
     10 times a step; the K-max backward pair 6 times a step under ``mx``
     (rounding off), never otherwise; the rounding cast never."""
     want = dict(fps=6, gather=30, max_bwd_cnt_gsm=18 if kmax else 0,
-                max_bwd_dz=18 if kmax else 0, sr_bf16=0)
+                max_bwd_dz=18 if kmax else 0, sr_bf16=0, bn_relu_eval=0)
     got = {k: c[k] for k in want}
     if got != want:
         raise AssertionError(f"{what}: launched {got} in 3 steps, not "
@@ -3289,7 +3424,7 @@ MODELNET_SPLIT = (8, 2)
 PROBE_ACD_SHAPES = 120
 PROBE_EPOCHS = 2
 # one probe batch: the pretrain model's eval forward (no convex loss)
-PROBE_BATCH = dict(fps=2, gather=10)
+PROBE_BATCH = dict(fps=2, gather=10, bn_relu_eval=BN_EVAL_CALLS)
 
 
 def write_modelnet_tree(root, n_cats=CLS_CLASSES, split=MODELNET_SPLIT,
@@ -4431,11 +4566,13 @@ LIFT_FLAGS = ["--k_shots", "1", "--seeds", "786", "--arms", "sup,con,pre_con",
 LIFT_PROBE = ["--n", "8", "--batch", "4", "--space", "feat",
               "--npoint", str(N)]
 # launches of one mxsr step at any batch: the supervised step, the
-# contrastive step (the encoder's alone); and of one eval forward without
-# the convex loss
+# contrastive step (the encoder's alone); of one train-mode forward (a
+# step with no backward kernel); and of one eval forward without the
+# convex loss
 SUP_STEP = dict(fps=2, gather=10, max_bwd_cnt_gsm=6, max_bwd_dz=6,
                 sr_bf16=40)
 FORWARD = dict(fps=2, gather=10)
+EVAL_FORWARD = dict(FORWARD, bn_relu_eval=BN_EVAL_CALLS)
 # a lift run's iteration: sup and pre_con a supervised step, con a
 # supervised and a contrastive step, the contrastive pretrain one
 # contrastive step
@@ -4444,7 +4581,7 @@ LIFT_ITERATION = {"sup": SUP_STEP, "pre_con": SUP_STEP,
                   "pretrain": SUP_STEP}
 # a probe batch: the eval forward, then cluster_batch's first bandwidth
 # candidate (bandwidth, 10 mean-shift steps, NMS)
-LIFT_PROBE_BATCH = dict(FORWARD, bandwidth=1, mean_shift=10, nms=3)
+LIFT_PROBE_BATCH = dict(EVAL_FORWARD, bandwidth=1, mean_shift=10, nms=3)
 
 
 def _expected(counts, want):
@@ -4713,7 +4850,7 @@ def tools_phase(kernels):
         if bad or len(r["counts"]) != AB_STEPS:
             raise AssertionError(f"ab fused={fused} steps launched "
                                  f"{bad[:1] or r['counts']}, not {want}")
-        if r["eval_counts"] != _expected(r["eval_counts"], FORWARD):
+        if r["eval_counts"] != _expected(r["eval_counts"], EVAL_FORWARD):
             raise AssertionError(f"ab fused={fused} held-out forward "
                                  f"launched {r['eval_counts']}")
         if not (len(r["losses"]) == AB_STEPS
@@ -4900,9 +5037,12 @@ CALLS_OF = {"mean_shift_bwd": "one self-sup step",
             "max_bwd_cnt_gsm": "one mxsr train step",
             "max_bwd_dz": "one mxsr train step",
             "sr_bf16": "one mxsr supervised step"}
-# the helper kernel has no TPU counterpart: in the JAX package the cast is
-# an XLA fusion
-SR_REPLACES = "prifit_tpu/nn/mixed.py:115 (sr_bf16, an XLA fusion)"
+# the kernels with no TPU counterpart: in the JAX package each is an XLA
+# fusion
+FUSION_REPLACES = {
+    "sr_bf16": "prifit_tpu/nn/mixed.py:115 (sr_bf16, an XLA fusion)",
+    "bn_relu_eval": "prifit_tpu/nn/pointnet2.py PointMLP's eval chain with "
+                    "prifit_tpu/nn/norm.py BatchNorm (an XLA fusion)"}
 
 
 def log_kernels(results, smi):
@@ -5083,7 +5223,10 @@ def main():
     del X, kth
     check_ragged()
     results.update(check_max_bwd())
+    results["bn_relu_eval"] = check_bn_eval(entry)
     log_kernels(results, smi)
+    for c in results["bn_relu_eval"]["per_call_ms"]:
+        log(f"  bn_relu_eval call {c}")
 
     counts, times, out = main_path(entry, kernels)
     t = sorted(times)[1]
@@ -5268,7 +5411,8 @@ def main():
         r = results[name]
         rows.append(dict(
             name=name, route="cuda", source=k.source_path,
-            replaces=k.replaces or SR_REPLACES, tpu_kernel=bool(k.replaces),
+            replaces=k.replaces or FUSION_REPLACES[name],
+            tpu_kernel=bool(k.replaces),
             launches=sum(c[name] for c in paths.values()),
             launches_by_path={p: c[name] for p, c in paths.items()},
             launches_per_trainer_iteration=tr["last"][name],

@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("fps", "gather", "bandwidth", "mean_shift", "mean_shift_bwd",
-           "nms", "max_bwd_cnt_gsm", "max_bwd_dz", "sr_bf16")
+           "nms", "max_bwd_cnt_gsm", "max_bwd_dz", "sr_bf16",
+           "bn_relu_eval")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -28,6 +28,15 @@ region runs its last layer and the K-max as the closed-form region
 bf16 storage for a bf16 encoder and f32 storage otherwise; its backward
 is kernels #7 and #8.
 
+Eval epilogue: with a batch norm in eval mode (no ``charts``), no
+gradient recorded and a dtype other than ``FQ``, a layer's dense bias,
+batch norm, cast, relu and, where it ends an SA scale or the group-all
+layer, the K-max run as one kernel
+(:func:`prifit_torch.kernels.bn_eval.bn_relu_eval`) on the product; the
+values are those of the op chain, bit for bit.  Training-mode batch norm
+(batch statistics, autograd), the regions and ``FQ`` (which rounds
+straight-through between the batch norm and the relu) keep the op chain.
+
 Data parallelism: each batch norm's ``process_group`` (set by
 :func:`prifit_torch.nn.norm.set_process_group`) makes its statistics,
 and those of the regions it belongs to, global over the group.
@@ -36,6 +45,7 @@ and those of the regions it belongs to, global over the group.
 import torch
 from torch import nn
 
+from prifit_torch.kernels.bn_eval import bn_relu_eval
 from prifit_torch.nn.mixed import MX, MXSR, mx_chain
 from prifit_torch.nn.norm import BatchNorm
 from prifit_torch.parallel.collectives import group_size
@@ -146,19 +156,44 @@ def conv_weight(conv: nn.Module) -> torch.Tensor:
     return conv.weight.reshape(conv.weight.shape[0], conv.weight.shape[1])
 
 
+def eval_epilogue(bn, dtype) -> bool:
+    """Whether the layer of batch norm ``bn`` ends in the eval kernel (see
+    the module docstring)."""
+    return not (bn.training or torch.is_grad_enabled()) \
+        and bn.charts is None and dtype != FQ
+
+
+def bn_eval(bn, z, dense_bias=None, storage=None,
+            kmax: bool = False) -> torch.Tensor:
+    """The eval kernel on a layer's product ``z`` with ``bn``'s running
+    statistics and affine; ``storage`` only for a grouped first layer's
+    f32 pre-activation."""
+    return bn_relu_eval(z, bn.running_mean, bn.running_var, bn.eps,
+                        bn.weight, bn.bias, dense_bias, storage, kmax)
+
+
 def point_mlp(convs, bns, x: torch.Tensor, dtype,
-              bn_momentum: float) -> torch.Tensor:
+              bn_momentum: float, kmax: bool = False) -> torch.Tensor:
     """Shared per-point MLP: [dense -> BN -> relu] per layer (the explicit
-    chain of ``PointMLP`` in the JAX package)."""
+    chain of ``PointMLP`` in the JAX package); with ``kmax`` the max over
+    axis -2 of the last layer's output."""
     dt = eff(dtype)
-    for conv, bn in zip(convs, bns):
+    last = len(convs) - 1
+    for i, (conv, bn) in enumerate(zip(convs, bns)):
+        if eval_epilogue(bn, dtype):
+            x = bn_eval(bn, dense(x, conv_weight(conv), None, dt), conv.bias,
+                        kmax=kmax and i == last)
+            continue
         x = dense(x, conv_weight(conv), conv.bias,
                   dt if dtype != FQ else dtype)
         x = bn(x, bn_momentum)
         if dtype == FQ:
             x = stq(x)
         x = torch.relu(x)
-    return x
+        if kmax and i == last:
+            x = torch.amax(x, dim=-2)
+    # an empty chain (a one-layer SA scale after its grouped first layer)
+    return torch.amax(x, dim=-2) if kmax and not len(convs) else x
 
 
 def gfl_weights(conv, d_in: int, xyz_first: bool = False):
@@ -206,6 +241,8 @@ def grouped_first_layer(conv, bn, d_in: int, xyz, points, new_xyz, idx,
     layer, cast to the chain's dtype."""
     grouped = gfl_pre_tensor(conv, d_in, xyz, points, new_xyz, idx,
                              xyz_first)
+    if eval_epilogue(bn, dtype):
+        return bn_eval(bn, grouped, storage=eff(dtype))
     grouped = cast(grouped, eff(dtype))
     grouped = bn(grouped, bn_momentum)
     if dtype == FQ:
@@ -243,8 +280,7 @@ def sa_scale(convs, bns, d_in: int, xyz, points, new_xyz, idx, dtype,
     if train and max_region and dtype != FQ and len(convs) > 1:
         h = point_mlp(convs[1:-1], bns[1:-1], h, dtype, bn_momentum)
         return max_region_last(convs[-1], bns[-1], h, dtype, bn_momentum)
-    h = point_mlp(convs[1:], bns[1:], h, dtype, bn_momentum)
-    return torch.amax(h, dim=-2)
+    return point_mlp(convs[1:], bns[1:], h, dtype, bn_momentum, kmax=True)
 
 
 class SetAbstractionMsg(nn.Module):
@@ -367,9 +403,8 @@ class SetAbstractionAll(nn.Module):
         if self.training and self.dtype in (MX, MXSR):
             return new_xyz, region(self.dtype, grouped, None, self.mlp_convs,
                                    self.mlp_bns, True, bn_momentum, sr_key)
-        out = point_mlp(self.mlp_convs, self.mlp_bns, grouped, self.dtype,
-                        bn_momentum)
-        return new_xyz, torch.amax(out, dim=2)
+        return new_xyz, point_mlp(self.mlp_convs, self.mlp_bns, grouped,
+                                  self.dtype, bn_momentum, kmax=True)
 
 
 class FeaturePropagation(nn.Module):
